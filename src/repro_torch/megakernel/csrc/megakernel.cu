@@ -1,0 +1,482 @@
+// The decode megakernel: one persistent CUDA kernel runs every task of a
+// decode step from the descriptor table against one float32 heap.
+//
+// Replaces: the Pallas persistent megakernel of the JAX package,
+// repro/kernels/megakernel/kernel.py `make_megakernel` (pallas_call at
+// kernel.py:1175), for the static scheduler at W = 1 and the dense task
+// kinds 0-8 (noop, matmul + bias + activation, rmsnorm, rope, glu,
+// residual/scale-add, GQA decode attention, KV cache update, embedding).
+//
+// Design: one CTA of 512 threads per worker (W = 1 here: one CTA).  The
+// CTA walks its descriptor rows in order; each kind is a __device__
+// function selected by a switch on word 0, with __syncthreads() between
+// tasks so that task t's heap stores are visible to task t + 1, and the
+// next descriptor row is fetched while the current task runs.  Offsets
+// are int64: a full-width heap holds 11.85 G words.  Every primary tile is
+// read on demand through the descriptor's addresses (words 28-30 describe
+// the same tile); the prefetch plan (words 24-27) is read and ignored for
+// now.  Stores write only the valid columns, rounded up to STORE_CH
+// chunks and capped at TN, as the reference's masked stores do.
+//
+// Bound: at full width a decode step is bound by its weight bytes.
+// deepseek-7b (30 layers, d = 4096, d_ff = 11008, vocab 102400) reads
+// about 6.49 G float32 weight elements per step, 25.96 GB, so the bound on
+// an H100 (3.35 TB/s) is about 7.75 ms.  The matmul is a GEMV (TM = 2
+// rows): the rows of x are staged whole in shared memory, threads own
+// 4-column groups of the output and stream K with 16-byte weight loads
+// 8-16 deep, reading weight rows that are contiguous along N so a warp's
+// loads coalesce; narrow tiles split K across thread groups and reduce
+// through shared memory.  Attention splits each (row, head)'s cache
+// positions across warps and merges their online-softmax states.  Still,
+// one CTA keeps only one SM's worth of loads in flight and is far from
+// the bound: more workers (W > 1, one CTA per SM with in-heap events) and
+// the prefetch pipeline are the later changes that close the gap.
+//
+// Numerics follow the reference in float32: no TF32, no fast math, GELU
+// in its tanh form.
+//
+// Built by repro_torch/megakernel/build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// into a shared library with a plain C interface, loaded with ctypes.
+
+#include <cuda_runtime.h>
+
+extern __shared__ __align__(16) unsigned char smem_raw[];
+
+namespace {
+
+constexpr int NT = 512;            // threads per CTA
+constexpr int NWARP = NT / 32;
+constexpr int RP = 2;              // matmul output rows per pass
+constexpr int VEC = 4;             // floats per weight load (float4)
+constexpr int HPL = 8;             // attention head elements per lane
+constexpr int DESC_WORDS = 36;
+constexpr int STATS_WORDS = 12;
+constexpr int HEAD_BYTES = 384;    // descriptor row + reduction words
+constexpr long long ROW_SPILL = 1LL << 20;
+
+struct Statics {
+  long long tn;          // tile width TN
+  long long tk;          // matmul depth bound TK
+  long long hd;          // head_dim
+  long long g;           // query heads per KV head
+  long long store_ch;    // masked-store chunk width
+  long long stats_off;   // heap offset of the per-worker counter blocks
+  float theta;           // RoPE base
+};
+
+// Dynamic shared memory: [descriptor row | block-reduction words]
+// [matmul partial sums: RP * NT * VEC] [matmul x rows: RP * TK, which
+// doubles as the attention merge scratch].
+struct Smem {
+  long long* d;
+  float* scal;
+  float* red;
+  float* x;
+};
+
+__device__ __forceinline__ long long lmin(long long a, long long b) {
+  return a < b ? a : b;
+}
+
+// Columns a store writes: `valid` rounded up to whole chunks, capped at TN.
+__device__ __forceinline__ long long store_width(long long valid,
+                                                 const Statics& S) {
+  if (valid <= 0) return 0;
+  const long long chw = lmin(S.store_ch, S.tn);
+  return lmin(S.tn, (valid + chw - 1) / chw * chw);
+}
+
+__device__ __forceinline__ float word_f32(long long w) {
+  return __int_as_float(static_cast<int>(w));
+}
+
+__device__ __forceinline__ float act(float y, long long id) {
+  if (id == 1) return y / (1.0f + expf(-y));                   // silu
+  if (id == 2) {                                               // gelu-tanh
+    const float c = 0.7978845608028654f;                       // sqrt(2/pi)
+    return 0.5f * y * (1.0f + tanhf(c * (y + 0.044715f * y * y * y)));
+  }
+  return y;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum over the CTA; every thread gets the total.
+__device__ float block_sum(float v, float* scal) {
+  v = warp_sum(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) scal[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = (threadIdx.x & 31) < NWARP ? scal[threadIdx.x & 31] : 0.0f;
+  return warp_sum(v);
+}
+
+// ---- kind 1: out[m, ws] = act(x[m, K] @ W[K, ws] + bias) ---------------
+// One pass over RP rows of x (staged in shared memory).  Thread (ks, jt)
+// owns CPT float4 column groups and the K rows ks, ks + nks, ...; the
+// weights are read-only for the whole launch, so they stream through the
+// non-coherent load path.
+template <int CPT, int UNROLL>
+__device__ void mm_pass(float* heap, const long long* d, long long r0,
+                        int rp, long long K, long long ncg, const Smem& sm) {
+  const int tid = threadIdx.x;
+  const int ct = static_cast<int>(lmin(NT, (ncg + 31) / 32 * 32));
+  const int nks = NT / ct;
+  const int ks = tid / ct, jt = tid % ct;
+  float acc[RP][CPT][VEC];
+#pragma unroll
+  for (int r = 0; r < RP; ++r)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[r][c][e] = 0.0f;
+  if (ks < nks) {
+    const long long ld4 = d[9] / VEC;
+    const float4* wp = reinterpret_cast<const float4*>(heap + d[8])
+                       + ks * ld4 + jt;
+    const long long step = static_cast<long long>(nks) * ld4;
+    bool live[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) live[c] = jt + c * ct < ncg;
+#pragma unroll (UNROLL)
+    for (long long k = ks; k < K; k += nks) {
+      float4 w[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        w[c] = live[c] ? __ldg(wp + c * ct) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < RP; ++r) {
+        const float xv = sm.x[r * K + k];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          acc[r][c][0] = fmaf(xv, w[c].x, acc[r][c][0]);
+          acc[r][c][1] = fmaf(xv, w[c].y, acc[r][c][1]);
+          acc[r][c][2] = fmaf(xv, w[c].z, acc[r][c][2]);
+          acc[r][c][3] = fmaf(xv, w[c].w, acc[r][c][3]);
+        }
+      }
+      wp += step;
+    }
+  }
+  if (nks > 1) {                        // then CPT == 1: reduce K slices
+    if (ks < nks)
+#pragma unroll
+      for (int r = 0; r < RP; ++r)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          sm.red[((ks * RP + r) * ct + jt) * VEC + e] = acc[r][0][e];
+    __syncthreads();
+    if (ks == 0)
+#pragma unroll
+      for (int r = 0; r < RP; ++r)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          float s = 0.0f;
+          for (int q = 0; q < nks; ++q)
+            s += sm.red[((q * RP + r) * ct + jt) * VEC + e];
+          acc[r][0][e] = s;
+        }
+  }
+  if (ks == 0) {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const long long grp = jt + static_cast<long long>(c) * ct;
+      if (grp >= ncg) continue;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const long long j = grp * VEC + e;
+        const float bias = d[10] >= 0 ? heap[d[10] + j] : 0.0f;
+#pragma unroll
+        for (int r = 0; r < RP; ++r)
+          if (r < rp)
+            heap[d[4] + (r0 + r) * d[5] + j] =
+                act(acc[r][c][e] + bias, d[14]);
+      }
+    }
+  }
+}
+
+__device__ void k_matmul(float* heap, const long long* d, const Statics& S,
+                         const Smem& sm) {
+  const long long m = d[1], K = d[3];
+  const long long ws = store_width(d[2], S);
+  if (ws <= 0 || m <= 0) return;
+  const long long ncg = ws / VEC;      // ws % VEC == 0: checked at load
+  for (long long r0 = 0; r0 < m; r0 += RP) {
+    const int rp = static_cast<int>(lmin(RP, m - r0));
+    __syncthreads();                    // x and red are free
+    for (int r = 0; r < RP; ++r)
+      for (long long k = threadIdx.x; k < K; k += NT)
+        sm.x[r * K + k] = r < rp ? heap[d[6] + (r0 + r) * d[7] + k] : 0.0f;
+    __syncthreads();
+    if (ncg <= NT) mm_pass<1, 16>(heap, d, r0, rp, K, ncg, sm);
+    else mm_pass<2, 8>(heap, d, r0, rp, K, ncg, sm);
+  }
+}
+
+// ---- kind 2: out = x * rsqrt(mean(x^2) + eps) * (w or 1 + w) ------------
+__device__ void k_rmsnorm(float* heap, const long long* d, const Statics& S,
+                          const Smem& sm) {
+  const long long m = d[1], n = d[2];
+  const long long ws = store_width(n, S);
+  const float eps = word_f32(d[17]);
+  const bool gemma = d[14] == 1;
+  for (long long r = 0; r < m; ++r) {
+    const float* x = heap + d[6] + r * d[7];
+    float ss = 0.0f;
+    for (long long j = threadIdx.x; j < n; j += NT) ss += x[j] * x[j];
+    ss = block_sum(ss, sm.scal);
+    const float inv = rsqrtf(ss / static_cast<float>(n) + eps);
+    for (long long j = threadIdx.x; j < ws; j += NT) {
+      float y = 0.0f;
+      if (j < n) {
+        const float w = heap[d[10] + j];
+        y = x[j] * inv * (gemma ? 1.0f + w : w);
+      }
+      heap[d[4] + r * d[5] + j] = y;
+    }
+  }
+}
+
+// ---- kind 3: rotate-half RoPE of each head at angle pos * theta^(-i/half)
+__device__ void k_rope(float* heap, const long long* d, const Statics& S) {
+  const long long m = d[1];
+  const long long ws = store_width(d[2], S);
+  const long long hd = S.hd, half = S.hd / 2, nh = S.tn / S.hd;
+  for (long long i = threadIdx.x; i < m * ws; i += NT) {
+    const long long r = i / ws, j = i % ws, h = j / hd, e = j % hd;
+    float y = 0.0f;
+    if (h < nh) {
+      const long long ii = e < half ? e : e - half;
+      const float pos = heap[d[19] + r * d[20]];
+      const float f = powf(S.theta, -static_cast<float>(ii)
+                                        / static_cast<float>(half));
+      const float ang = pos * f;
+      const float c = cosf(ang), s = sinf(ang);
+      const float* x = heap + d[6] + r * d[7] + h * hd;
+      const float x1 = x[ii], x2 = x[ii + half];
+      y = e < half ? x1 * c - x2 * s : x2 * c + x1 * s;
+    }
+    heap[d[4] + r * d[5] + j] = y;
+  }
+}
+
+// ---- kind 4: out = act(a) * b --------------------------------------------
+__device__ void k_glu(float* heap, const long long* d, const Statics& S) {
+  const long long m = d[1];
+  const long long ws = store_width(d[2], S);
+  for (long long i = threadIdx.x; i < m * ws; i += NT) {
+    const long long r = i / ws, j = i % ws;
+    heap[d[4] + r * d[5] + j] =
+        act(heap[d[6] + r * d[7] + j], d[14]) * heap[d[8] + r * d[9] + j];
+  }
+}
+
+// ---- kind 5: out = a * scale + b (b absent: scale only) -----------------
+__device__ void k_resid(float* heap, const long long* d, const Statics& S) {
+  const long long m = d[1];
+  const long long ws = store_width(d[2], S);
+  const float scale = word_f32(d[17]);
+  for (long long i = threadIdx.x; i < m * ws; i += NT) {
+    const long long r = i / ws, j = i % ws;
+    float y = heap[d[6] + r * d[7] + j] * scale;
+    if (d[8] >= 0) y = y + heap[d[8] + r * d[9] + j];
+    heap[d[4] + r * d[5] + j] = y;
+  }
+}
+
+// ---- kind 6: GQA decode attention ----------------------------------------
+// Each (row, query head) pair gets `nsplit` warps; warp j runs an online
+// softmax over the live cache positions j, j + nsplit, ... (lanes hold
+// head elements), then the warps' (max, sum, acc) states are merged
+// through shared memory.
+__device__ void k_attn(float* heap, const long long* d, const Statics& S,
+                       const Smem& sm) {
+  const long long m = d[1], s_len = d[3];
+  const long long ws = store_width(d[2], S);
+  const long long hd = S.hd, heads = d[16] * S.g;
+  const float scale = word_f32(d[17]);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (long long i = threadIdx.x; i < m * ws; i += NT) {
+    const long long r = i / ws, j = i % ws;
+    if (j >= heads * hd) heap[d[4] + r * d[5] + j] = 0.0f;
+  }
+  const long long npairs = m * heads;
+  if (npairs <= 0) return;
+  const int nsplit = npairs >= NWARP ? 1 : NWARP / static_cast<int>(npairs);
+  const int per_round = NWARP / nsplit;
+  float* part = sm.x;                   // NWARP states of (hd + 2) words
+  for (long long p0 = 0; p0 < npairs; p0 += per_round) {
+    const long long p = p0 + wid / nsplit;
+    const int split = wid % nsplit;
+    const bool active = wid < per_round * nsplit && p < npairs;
+    float mrun = -1e30f, l = 0.0f, o[HPL];
+#pragma unroll
+    for (int e = 0; e < HPL; ++e) o[e] = 0.0f;
+    if (active) {
+      const long long r = p / heads, qh = p % heads, gi = qh / S.g;
+      const long long live = lmin(static_cast<long long>(heap[d[12] + r]),
+                                  s_len);
+      const float* qp = heap + d[6] + r * d[7] + qh * hd;
+      const float* kp = heap + d[8] + r * d[15] + gi * hd;
+      const float* vp = heap + d[10] + r * d[15] + gi * hd;
+      float q[HPL];
+#pragma unroll
+      for (int e = 0; e < HPL; ++e) {
+        const long long c = lane + 32 * e;
+        q[e] = c < hd ? qp[c] * scale : 0.0f;
+      }
+      for (long long s = split; s < live; s += nsplit) {
+        float part_dot = 0.0f, v[HPL];
+#pragma unroll
+        for (int e = 0; e < HPL; ++e) {
+          const long long c = lane + 32 * e;
+          v[e] = c < hd ? vp[s * d[11] + c] : 0.0f;
+          if (c < hd) part_dot = fmaf(kp[s * d[9] + c], q[e], part_dot);
+        }
+        const float logit = warp_sum(part_dot);
+        const float mnew = fmaxf(mrun, logit);
+        const float corr = expf(mrun - mnew), pe = expf(logit - mnew);
+        l = l * corr + pe;
+#pragma unroll
+        for (int e = 0; e < HPL; ++e) o[e] = o[e] * corr + pe * v[e];
+        mrun = mnew;
+      }
+    }
+    float* ps = part + wid * (hd + 2);
+    if (active) {
+      if (lane == 0) { ps[0] = mrun; ps[1] = l; }
+#pragma unroll
+      for (int e = 0; e < HPL; ++e)
+        if (lane + 32 * e < hd) ps[2 + lane + 32 * e] = o[e];
+    }
+    __syncthreads();
+    for (long long i = threadIdx.x; i < per_round * hd; i += NT) {
+      const long long pi = i / hd, c = i % hd, pp = p0 + pi;
+      if (pp >= npairs) continue;
+      const float* base = part + pi * nsplit * (hd + 2);
+      float mx = -1e30f;
+      for (int j = 0; j < nsplit; ++j) mx = fmaxf(mx, base[j * (hd + 2)]);
+      float num = 0.0f, den = 0.0f;
+      for (int j = 0; j < nsplit; ++j) {
+        const float* sj = base + j * (hd + 2);
+        const float wgt = expf(sj[0] - mx);
+        num += wgt * sj[2 + c];
+        den += wgt * sj[1];
+      }
+      const long long r = pp / heads, qh = pp % heads;
+      if (qh * hd + c < ws)
+        heap[d[4] + r * d[5] + qh * hd + c] = num / fmaxf(den, 1e-30f);
+    }
+    __syncthreads();
+  }
+}
+
+// ---- kind 7: write each new K/V row at cache row seq_lens[r] -------------
+__device__ void k_cache_update(float* heap, const long long* d,
+                               const Statics& S) {
+  const long long m = d[1];
+  const long long ws = store_width(d[2], S);
+  for (long long i = threadIdx.x; i < m * ws; i += NT) {
+    const long long r = i / ws, j = i % ws;
+    const long long seq = static_cast<long long>(heap[d[12] + r]);
+    heap[d[4] + r * d[15] + seq * d[5] + j] = heap[d[6] + r * d[7] + j];
+  }
+}
+
+// ---- kind 8: embedding rows by token id ----------------------------------
+__device__ void k_embed(float* heap, const long long* d, const Statics& S) {
+  const long long m = d[1];
+  const long long ws = store_width(d[2], S);
+  for (long long i = threadIdx.x; i < m * ws; i += NT) {
+    const long long r = i / ws, j = i % ws;
+    const long long tok = static_cast<long long>(heap[d[6] + r]);
+    heap[d[4] + r * d[5] + j] = heap[d[8] + tok * d[9] + j];
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+megakernel(float* heap, const long long* __restrict__ descs,
+           long long num_steps, long long num_workers, Statics S) {
+  Smem sm;
+  sm.d = reinterpret_cast<long long*>(smem_raw);
+  sm.scal = reinterpret_cast<float*>(smem_raw + DESC_WORDS * 8);
+  sm.red = reinterpret_cast<float*>(smem_raw + HEAD_BYTES);
+  sm.x = sm.red + RP * NT * VEC;
+  const long long w = blockIdx.x;
+  const long long* row0 = descs + w * DESC_WORDS;
+  const long long stride = num_workers * DESC_WORDS;
+  // counters (thread 0): tile transfers, rows in them, primary tiles
+  // demand-loaded -- the same counts the plain version writes
+  long long bulk = 0, rows = 0, fallbacks = 0;
+  if (threadIdx.x < DESC_WORDS && num_steps > 0)
+    sm.d[threadIdx.x] = row0[threadIdx.x];
+  for (long long s = 0; s < num_steps; ++s) {
+    __syncthreads();                    // this task's row is in sm.d
+    // fetch the next row now; it lands in sm.d after this task
+    long long next = 0;
+    if (threadIdx.x < DESC_WORDS && s + 1 < num_steps)
+      next = row0[(s + 1) * stride + threadIdx.x];
+    const long long* d = sm.d;
+    switch (d[0]) {
+      case 0: break;
+      case 1: k_matmul(heap, d, S, sm); break;
+      case 2: k_rmsnorm(heap, d, S, sm); break;
+      case 3: k_rope(heap, d, S); break;
+      case 4: k_glu(heap, d, S); break;
+      case 5: k_resid(heap, d, S); break;
+      case 6: k_attn(heap, d, S, sm); break;
+      case 7: k_cache_update(heap, d, S); break;
+      case 8: k_embed(heap, d, S); break;
+      default: __trap();                // a kind of a later slice
+    }
+    if (threadIdx.x == 0 && d[0] != 0) {
+      if (d[30] > 0) { ++bulk; rows += d[30]; ++fallbacks; }
+      bulk += (d[0] == 7 || d[0] == 8) ? d[1] : 1;
+      rows += d[1];
+    }
+    __syncthreads();                    // the task's stores landed
+    if (threadIdx.x < DESC_WORDS) sm.d[threadIdx.x] = next;
+  }
+  if (threadIdx.x == 0) {
+    float* st = heap + S.stats_off + w * STATS_WORDS;
+    for (int i = 0; i < STATS_WORDS; ++i) st[i] = 0.0f;
+    st[0] = static_cast<float>(bulk);
+    st[1] = static_cast<float>(rows % ROW_SPILL);
+    st[3] = static_cast<float>(fallbacks);
+    st[4] = static_cast<float>(rows / ROW_SPILL);
+  }
+}
+
+}  // namespace
+
+// One launch: `num_workers` CTAs walk the (num_steps, num_workers)
+// descriptor grid against the heap on `stream`.  Returns the CUDA error
+// of the launch (0 on success).
+extern "C" int mk_launch(float* heap, const long long* descs,
+                         long long num_steps, long long num_workers,
+                         long long tn, long long tk, long long hd,
+                         long long g, long long store_ch,
+                         long long stats_off, double theta, void* stream) {
+  Statics S{tn, tk, hd, g, store_ch, stats_off, static_cast<float>(theta)};
+  const long long x_words = RP * tk > NWARP * (hd + 2) ? RP * tk
+                                                       : NWARP * (hd + 2);
+  const size_t smem = HEAD_BYTES + sizeof(float) * (RP * NT * VEC + x_words);
+  cudaError_t err = cudaFuncSetAttribute(
+      megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  megakernel<<<static_cast<unsigned>(num_workers), NT, smem,
+               static_cast<cudaStream_t>(stream)>>>(heap, descs, num_steps,
+                                                    num_workers, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* mk_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

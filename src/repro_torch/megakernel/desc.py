@@ -1,0 +1,509 @@
+"""Megakernel lowering: CompiledTGraph → (heap layout, task descriptors).
+
+The port's copy of ``repro/kernels/megakernel/desc.py`` (the reference)
+for the static scheduler and the dense task kinds.  Every task becomes a
+``DESC_WORDS`` = 36-word descriptor; the heap is one flat float32 buffer
+holding every graph tensor.  A tensor of shape ``(..., cols)`` is stored
+as ``rows = prod(shape[:-1])`` rows with padded row stride
+``ld = align128(cols + TN)``, so a TN-wide tile access from any legal
+column stays inside its own row slot.
+
+What differs from the reference:
+
+* descriptor words and heap offsets are **int64**.  At the full width of
+  deepseek-7b (B=2, S=128) the heap holds 11.85 G float32 words and the
+  reference's int32 table overflows (``desc.py:623`` raises
+  ``OverflowError``).  Float words (17/18) keep their int32 bit pattern
+  (sign-extended);
+* ``build_heap`` writes into a device tensor one binding at a time and
+  never builds a host-side image of the heap;
+* the dynamic scheduler, the multichip stamp and the trace ring are later
+  slices: asking for them raises ``NotImplementedError``, as do the task
+  kinds of the MoE and SSM families.
+
+Descriptor words (per kind, see ``lower_tgraph``):
+   0 kind   1 m      2 n      3 k      4 out_off 5 ldo
+   6 a_off  7 lda    8 b_off  9 ldb   10 c_off  11 ldc
+  12 d_off 13 ldd   14 act   15 aux0  16 aux1   17 fbits0
+  18 fbits1 19 e_off 20 lde  21 aux2  22 aux3   23 aux4
+  24-26 prefetch plan for the next task, 27 self_pf (planned as the
+  reference plans them; the port's kernel reads and ignores them for
+  now), 28-30 the task's own primary tile record (off, ld, rows),
+  32-34 event wait/signal (-1 at W = 1), 35 affinity (0).
+
+The heap tail carries the event table (empty at W = 1) and one
+``STATS_WORDS`` counter block per worker at ``stats_offset``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.compile import CompiledTGraph
+from ..core.graph import OpKind
+
+__all__ = ["KIND_CODES", "DESC_WORDS", "STATS_WORDS", "PER_STEP_INPUTS",
+           "TensorSlot", "MegakernelPlan", "lower_tgraph", "stamp_multichip"]
+
+#: graph inputs that change every decode step — everything else in the heap
+#: (weights, caches) is uploaded once and lives on the device
+PER_STEP_INPUTS = ("tokens", "h0", "positions", "seq_lens", "live_lens")
+
+DESC_WORDS = 36
+
+#: float32 words reserved PER WORKER at the heap tail for the kernel's
+#: counters, the reference's layout: [0] tile transfers, [1] rows in them
+#: (2^20-unit spill in [4]), [2] prefetched tiles, [3] primary tiles
+#: demand-loaded, [5]-[7] event waits / violations / signals, [8]-[11]
+#: dynamic-scheduler pops (zero under the static scheduler)
+STATS_WORDS = 12
+
+KIND_CODES = {
+    "noop": 0,
+    OpKind.MATMUL: 1,
+    OpKind.RMSNORM: 2,
+    OpKind.ROPE: 3,
+    OpKind.GLU_MUL: 4,
+    OpKind.RESIDUAL_ADD: 5,
+    OpKind.ELEMENTWISE: 5,          # scale-add, b absent
+    OpKind.ATTENTION_DECODE: 6,
+    OpKind.CACHE_UPDATE: 7,
+    OpKind.EMBED_LOOKUP: 8,
+}
+
+_ACT_IDS = {None: 0, "identity": 0, "silu": 1, "gelu": 2}
+
+
+def _align(n: int, a: int = 128) -> int:
+    return (n + a - 1) // a * a
+
+
+def _fbits(x: float) -> int:
+    return int(np.float32(x).view(np.int32))
+
+
+@dataclasses.dataclass
+class TensorSlot:
+    offset: int       # heap element offset of [0, ..., 0]
+    ld: int           # row stride (elements) of the last dim
+    shape: Tuple[int, ...]
+
+    @property
+    def rows(self) -> int:
+        r = 1
+        for s in self.shape[:-1]:
+            r *= s
+        return r
+
+    def elem(self, *idx: int) -> int:
+        """Heap offset of element ``idx`` (last index is a column)."""
+        assert len(idx) == len(self.shape)
+        row = 0
+        for s, i in zip(self.shape[:-1], idx[:-1]):
+            row = row * s + i
+        return self.offset + row * self.ld + idx[-1]
+
+    def view(self, heap: torch.Tensor) -> torch.Tensor:
+        """The slot as a strided view of ``heap`` in the tensor's shape."""
+        cols = self.shape[-1]
+        rows2d = torch.as_strided(heap, (self.rows, cols), (self.ld, 1),
+                                  self.offset)
+        return rows2d.view(self.shape) if len(self.shape) > 1 else \
+            rows2d.view(cols)
+
+
+@dataclasses.dataclass
+class MegakernelPlan:
+    """The static half of a compiled megakernel: descriptor table, heap
+    layout and kernel statics, a pure function of (graph, cfg).  The live
+    half (resident heap, launches) is ``ops.MegakernelExecutor``."""
+
+    compiled: CompiledTGraph
+    descs: np.ndarray                 # (num_steps * W, DESC_WORDS) int64
+    layout: Dict[str, TensorSlot]
+    heap_size: int
+    statics: Dict[str, Any]           # compile-time kernel parameters
+    stats_offset: int = 0
+    num_workers: int = 1
+    num_steps: int = 0
+    event_offset: int = 0
+    num_events: int = 0
+
+    def pipeline_stats(self) -> Dict[str, Any]:
+        """Scheduler stalls plus the prefetch plan's coverage over the
+        descriptor table (the plan the reference's kernel follows; the
+        port's kernel demand-loads every primary tile for now)."""
+        s = self.compiled.stats
+        kinds = self.descs[:, 0]
+        prefetchable = int(np.isin(kinds, list(_PRIMARY_ROWS_M)
+                                   + [KIND_CODES[OpKind.EMBED_LOOKUP]]).sum())
+        prefetched = int((self.descs[:, 27] == 1).sum())
+        return {
+            "stalls": s.get("pipeline_stalls", 0),
+            "stalls_naive": s.get("pipeline_stalls_naive",
+                                  s.get("pipeline_stalls", 0)),
+            "pipeline_depth": s.get("pipeline_depth", 2),
+            "prefetchable_tasks": prefetchable,
+            "prefetched_tasks": prefetched,
+            "prefetch_coverage": prefetched / max(1, prefetchable),
+        }
+
+    def input_classes(self) -> Dict[str, List[str]]:
+        """Graph inputs as ``per_step`` (tokens/positions/lengths),
+        ``state`` (the KV cache, aliased in place) and ``weights``."""
+        g = self.compiled.graph
+        state = set()
+        for op in g.ops:
+            amap = _ALIAS_OPS.get(op.kind)
+            if amap:
+                for in_i in amap.values():
+                    state.add(op.inputs[in_i])
+        per_step = [n for n in g.inputs if n in PER_STEP_INPUTS]
+        weights = [n for n in g.inputs
+                   if n not in state and n not in PER_STEP_INPUTS]
+        return {"per_step": per_step,
+                "state": [n for n in g.inputs if n in state],
+                "weights": weights}
+
+    def view(self, heap: torch.Tensor, name: str) -> torch.Tensor:
+        """Tensor ``name`` as a strided view of ``heap`` (no copy)."""
+        return self.layout[name].view(heap)
+
+    def alloc_heap(self, device) -> torch.Tensor:
+        """A zeroed heap on ``device``: pad columns and the tail are 0."""
+        return torch.zeros((self.heap_size,), dtype=torch.float32,
+                           device=device)
+
+    def build_heap(self, bindings: Mapping[str, Any],
+                   device) -> torch.Tensor:
+        """Pack bindings into a new heap on ``device``, one binding at a
+        time (ids and lengths are stored as float32 values)."""
+        heap = self.alloc_heap(device)
+        for name in self.compiled.graph.inputs:
+            self.view(heap, name).copy_(
+                torch.as_tensor(bindings[name]).reshape(
+                    self.layout[name].shape))
+        return heap
+
+    def read_output(self, heap: torch.Tensor, name: str) -> torch.Tensor:
+        """A copy of tensor ``name`` out of ``heap``."""
+        return self.view(heap, name).clone()
+
+
+#: kinds whose leading operand is a regular (m-row, descriptor-addressed)
+#: tile: code -> index of that operand in ``op.inputs``.  EMBED_LOOKUP is
+#: special-cased (a single token-id row); noop has no primary tile.
+_PRIMARY_ROWS_M = {
+    KIND_CODES[OpKind.MATMUL]: 0,
+    KIND_CODES[OpKind.RMSNORM]: 0,
+    KIND_CODES[OpKind.ROPE]: 0,
+    KIND_CODES[OpKind.GLU_MUL]: 0,
+    KIND_CODES[OpKind.RESIDUAL_ADD]: 0,      # ELEMENTWISE shares code 5
+    KIND_CODES[OpKind.ATTENTION_DECODE]: 0,
+    KIND_CODES[OpKind.CACHE_UPDATE]: 1,      # the new K/V rows, not cache
+}
+
+
+def _primary_record(d: np.ndarray):
+    """(off, ld, rows) of a descriptor's primary operand tile, or None."""
+    code = int(d[0])
+    if code == KIND_CODES[OpKind.EMBED_LOOKUP]:
+        return int(d[6]), 1, 1
+    if code in _PRIMARY_ROWS_M:
+        return int(d[6]), max(1, int(d[7])), int(d[1])
+    return None
+
+
+def _plan_prefetch(compiled: CompiledTGraph, layout: Dict[str, TensorSlot],
+                   grid: np.ndarray, num_steps: int, W: int) -> None:
+    """Emit the per-worker prefetch plan (descriptor words 24-31), exactly
+    as the reference does: the slot at ``(w, s)`` prefetches the primary
+    tile of ``(w, s + 1)`` iff that tile's slot is disjoint from every
+    output slot written at steps ``s`` and ``s + 1`` (the consumer's own
+    outputs excepted).  Words 28-30 always carry the task's own record."""
+    g = compiled.graph
+    tg = compiled.tg
+    part = compiled.partition
+
+    def slot_iv(name: str):
+        s = layout[name]
+        return s.offset, s.offset + s.rows * s.ld
+
+    n_rows = num_steps * W
+    prim_iv = [None] * n_rows
+    out_ivs = [[] for _ in range(n_rows)]
+    for tid in compiled.order:
+        task = tg.tasks[tid]
+        row = part.step_of[tid] * W + part.worker_of[tid]
+        if task.is_dummy:
+            continue
+        op = g.op(task.op_id)
+        code = int(grid[row, 0])
+        if code == KIND_CODES[OpKind.EMBED_LOOKUP]:
+            prim_iv[row] = slot_iv(op.inputs[0])
+        elif code in _PRIMARY_ROWS_M:
+            prim_iv[row] = slot_iv(op.inputs[_PRIMARY_ROWS_M[code]])
+        out_ivs[row] = [slot_iv(name) for name in task.out_regions]
+
+    for row in range(n_rows):
+        rec = _primary_record(grid[row])
+        if rec is not None:
+            grid[row, 28:31] = rec
+
+    def step_out_ivs(s: int, skip_row: int = -1):
+        ivs = []
+        for w in range(W):
+            r = s * W + w
+            if r != skip_row:
+                ivs.extend(out_ivs[r])
+        return ivs
+
+    for s in range(num_steps - 1):
+        hazard_now = step_out_ivs(s)
+        for w in range(W):
+            row = s * W + w
+            crow = (s + 1) * W + w
+            rec = _primary_record(grid[crow])
+            if rec is None:
+                continue
+            lo, hi = prim_iv[crow]
+            hazard = hazard_now + step_out_ivs(s + 1, skip_row=crow)
+            if any(wlo < hi and lo < whi for wlo, whi in hazard):
+                continue
+            grid[row, 24:27] = rec
+            grid[crow, 27] = 1
+    for row in range(W, n_rows):
+        if grid[row, 27] == 1:
+            assert (grid[row - W, 24:27] == grid[row, 28:31]).all(), row
+
+
+#: outputs that alias an input region (in-place state update)
+_ALIAS_OPS = {
+    OpKind.CACHE_UPDATE: {0: 0},      # out0 aliases ins[0] (the cache)
+}
+
+
+def _build_layout(compiled: CompiledTGraph, tn: int
+                  ) -> Tuple[Dict[str, TensorSlot], int]:
+    g = compiled.graph
+    alias: Dict[str, str] = {}
+    for op in g.ops:
+        amap = _ALIAS_OPS.get(op.kind)
+        if amap:
+            for out_i, in_i in amap.items():
+                alias[op.outputs[out_i]] = op.inputs[in_i]
+    layout: Dict[str, TensorSlot] = {}
+    off = 0
+    for name, spec in g.tensors.items():
+        if name in alias:
+            continue
+        cols = spec.shape[-1] if spec.shape else 1
+        ld = _align(cols + tn)
+        rows = 1
+        for s in spec.shape[:-1]:
+            rows *= s
+        layout[name] = TensorSlot(off, ld, tuple(spec.shape) or (1,))
+        off += rows * ld
+    for dst, src in alias.items():
+        root = src
+        while root in alias:
+            root = alias[root]
+        base = layout[root]
+        layout[dst] = TensorSlot(base.offset, base.ld,
+                                 tuple(g.spec(dst).shape))
+    return layout, off + tn  # trailing pad
+
+
+def lower_tgraph(compiled: CompiledTGraph, cfg,
+                 tn: Optional[int] = None,
+                 scheduler: str = "static",
+                 trace: bool = False) -> MegakernelPlan:
+    """Lower a compiled decode graph to the static W-worker plan."""
+    if scheduler != "static":
+        raise NotImplementedError(
+            f"scheduler={scheduler!r}: only the static scheduler is ported")
+    if trace:
+        raise NotImplementedError("the task trace ring is not ported yet")
+    g = compiled.graph
+    tg = compiled.tg
+
+    # tile-size statics from the task set
+    max_n = max_m = max_k = 1
+    for t in tg.tasks.values():
+        if t.is_dummy:
+            continue
+        op = g.op(t.op_id)
+        if op.kind not in KIND_CODES:
+            raise NotImplementedError(
+                f"megakernel task kind {op.kind} is not ported yet")
+        pr = t.out_regions[op.outputs[0]]
+        max_m = max(max_m, pr.shape[0])
+        if pr.ndim >= 2:
+            max_n = max(max_n, pr.shape[-1])
+        if op.kind == OpKind.MATMUL:
+            max_k = max(max_k, g.spec(op.inputs[0]).shape[-1])
+        if op.kind == OpKind.RMSNORM:
+            max_n = max(max_n, g.spec(op.inputs[0]).shape[-1])
+    tn = tn or _align(max_n)
+    layout, heap_size = _build_layout(compiled, tn)
+
+    # ---- store chunk width: the masked write-back granularity ----
+    # Stores are masked to STORE_CH-wide chunks whose start lies before
+    # the task's valid width; STORE_CH divides every column start and
+    # width of every column-tiled tensor, so masked stores never reach a
+    # neighbouring column tile (row-only tensors overhang into their own
+    # row slot's zero padding only).
+    store_ch = 128
+    col_starts: Dict[str, set] = {}
+    col_geom: Dict[str, list] = {}
+    for t in tg.tasks.values():
+        if t.is_dummy:
+            continue
+        op = g.op(t.op_id)
+        pr = t.out_regions[op.outputs[0]]
+        c0 = pr.starts[-1] if pr.ndim >= 2 else 0
+        nw = pr.shape[-1] if pr.ndim >= 2 else 1
+        col_starts.setdefault(op.outputs[0], set()).add(c0)
+        col_geom.setdefault(op.outputs[0], []).append((c0, nw))
+    for name, starts in col_starts.items():
+        if len(starts) > 1:
+            for c0, nw in col_geom[name]:
+                store_ch = math.gcd(store_ch, math.gcd(c0 or store_ch, nw))
+    store_ch = max(1, store_ch)
+
+    descs = np.zeros((len(compiled.order), DESC_WORDS), np.int64)
+    descs[:, 32] = -1                  # wait_ev sentinel (no wait)
+    descs[:, 34] = -1                  # sig_ev sentinel (no signal)
+    statics: Dict[str, Any] = {
+        "TN": tn, "TM": max_m, "TK": _align(max_k),
+        "HD": cfg.hd, "G": cfg.q_per_kv,
+        "THETA": float(cfg.rope_theta),
+        "EPS": cfg.norm_eps,
+        "STORE_CH": store_ch,
+    }
+
+    for pos, tid in enumerate(compiled.order):
+        task = tg.tasks[tid]
+        d = descs[pos]
+        if task.is_dummy:
+            d[0] = 0
+            continue
+        op = g.op(task.op_id)
+        kind = op.kind
+        d[0] = KIND_CODES[kind]
+        pr = task.out_regions[op.outputs[0]]
+        out = layout[op.outputs[0]]
+        ins = op.inputs
+        sl = lambda i: layout[ins[i]]
+
+        r0 = pr.starts[0]
+        c0 = pr.starts[-1] if pr.ndim >= 2 else 0
+        m = pr.shape[0]
+        n = pr.shape[-1] if pr.ndim >= 2 else 1
+        d[1], d[2] = m, n
+        if pr.ndim == 2:
+            d[4], d[5] = out.elem(r0, c0), out.ld
+
+        if kind == OpKind.MATMUL:
+            a, w = sl(0), sl(1)
+            k = a.shape[-1]
+            d[3] = k
+            d[6], d[7] = a.elem(r0, 0), a.ld
+            d[8], d[9] = w.elem(0, c0), w.ld
+            d[10] = sl(2).elem(c0) if len(ins) > 2 else -1
+            d[14] = _ACT_IDS[op.attrs.get("activation")]
+        elif kind == OpKind.RMSNORM:
+            x, w = sl(0), sl(1)
+            d[2] = x.shape[-1]
+            d[6], d[7] = x.elem(r0, 0), x.ld
+            d[10] = w.elem(0)
+            d[14] = 1 if op.attrs.get("gemma_style") else 0
+            d[17] = _fbits(op.attrs.get("eps", 1e-6))
+        elif kind == OpKind.ROPE:
+            x = sl(0)
+            d[6], d[7] = x.elem(r0, c0), x.ld
+            d[19] = sl(1).elem(r0)
+            d[20] = 1
+            d[15] = 0                                # no M-RoPE positions
+            d[16] = c0                               # global col offset
+        elif kind == OpKind.GLU_MUL:
+            a, bb = sl(0), sl(1)
+            d[6], d[7] = a.elem(r0, c0), a.ld
+            d[8], d[9] = bb.elem(r0, c0), bb.ld
+            d[14] = _ACT_IDS[op.attrs.get("activation", "silu")]
+        elif kind in (OpKind.RESIDUAL_ADD, OpKind.ELEMENTWISE):
+            a = sl(0)
+            d[6], d[7] = a.elem(r0, c0), a.ld
+            if len(ins) > 1:
+                bb = sl(1)
+                d[8], d[9] = bb.elem(r0, c0), bb.ld
+            else:
+                d[8] = -1
+            d[17] = _fbits(op.attrs.get("scale", 1.0))
+        elif kind == OpKind.ATTENTION_DECODE:
+            q, kc, vc = sl(0), sl(1), sl(2)
+            _b, s_cache, _kvd = kc.shape
+            hd, grp = op.attrs["head_dim"], op.attrs["q_per_kv"]
+            kv0 = c0 // (hd * grp)                   # first kv head in tile
+            d[3] = s_cache
+            d[6], d[7] = q.elem(r0, c0), q.ld
+            d[8], d[9] = kc.elem(r0, 0, kv0 * hd), kc.ld
+            d[15] = s_cache * kc.ld                  # batch stride
+            d[10], d[11] = vc.elem(r0, 0, kv0 * hd), vc.ld
+            d[12] = sl(3).elem(r0)                   # live_lens
+            d[17] = _fbits(op.attrs.get("scale", hd ** -0.5))
+            d[16] = n // (hd * grp)                  # groups in this tile
+        elif kind == OpKind.CACHE_UPDATE:
+            cache, new = sl(0), sl(1)
+            _b, s_cache, _kvd = cache.shape
+            d[2] = task.in_regions[ins[1]].shape[-1]
+            d[4], d[5] = cache.elem(r0, 0, pr.starts[-1]), cache.ld
+            d[15] = s_cache * cache.ld               # batch stride
+            d[6], d[7] = new.elem(r0, pr.starts[-1]), new.ld
+            d[12] = sl(2).elem(r0)                   # seq_lens
+        elif kind == OpKind.EMBED_LOOKUP:
+            ids, table = sl(0), sl(1)
+            d[6] = ids.elem(r0)
+            d[8], d[9] = table.elem(0, c0), table.ld
+
+    # ---- post-pass statics from the descriptor table ----
+    kinds = descs[:, 0]
+    statics["TM"] = int(descs[:, 1].max(initial=1))
+    attn = kinds == KIND_CODES[OpKind.ATTENTION_DECODE]
+    statics["NG"] = int(descs[attn, 16].max(initial=1))
+    statics["S_MAX"] = int(descs[attn, 3].max(initial=1))
+    mm = kinds == KIND_CODES[OpKind.MATMUL]
+    statics["TK"] = _align(max(statics["TK"],
+                               int(descs[mm, 3].max(initial=1))))
+
+    part = compiled.partition
+    W = part.num_workers
+    num_steps = part.num_steps
+    grid = np.zeros((num_steps * W, DESC_WORDS), np.int64)
+    grid[:, 32] = -1
+    grid[:, 34] = -1
+    for pos, tid in enumerate(compiled.order):
+        grid[part.step_of[tid] * W + part.worker_of[tid]] = descs[pos]
+    if W != 1:
+        raise NotImplementedError(
+            "W > 1 workers (in-heap event counters) are not ported yet")
+
+    _plan_prefetch(compiled, layout, grid, num_steps, W)
+    event_offset = heap_size            # no events at W = 1
+    stats_offset = heap_size
+    heap_size += STATS_WORDS * W
+    statics.update({"W": W, "NUM_STEPS": num_steps,
+                    "EVENT_OFF": event_offset, "N_EVENTS": 0,
+                    "STATS_OFF": stats_offset})
+    return MegakernelPlan(compiled, grid, layout, heap_size, statics,
+                          stats_offset, W, num_steps, event_offset, 0)
+
+
+def stamp_multichip(plan: MegakernelPlan, n_chips: int) -> MegakernelPlan:
+    """Per-chip task tables with in-kernel COMM tasks, the reference's
+    tensor-parallel lowering: a later slice of the port."""
+    raise NotImplementedError("the multichip lowering is not ported yet")

@@ -1,0 +1,235 @@
+"""The decode megakernel's wrapper, its launch count, and its plain
+PyTorch version.
+
+``megakernel(heap, descs, statics)`` runs one decode step: every row of
+the descriptor table, in order, against the float32 heap, in place.  For
+a heap on the card it launches the hand-written CUDA kernel
+(``csrc/megakernel.cu``, built by ``build.py``) and adds one to the
+launch count; for a heap on the CPU it runs ``megakernel_plain``, and on
+any other device it raises.  It replaces the Pallas megakernel of the
+JAX package (``repro/kernels/megakernel/kernel.py`` ``make_megakernel``)
+for the static scheduler at W = 1 and the dense task kinds.
+
+``megakernel_plain`` is a Python loop over the same descriptor rows that
+runs each kind with torch ops on views of the heap.  It computes what
+the kernel computes (same tiles, same masked store widths, same counters)
+on any device: the CPU tests run it, and ``chip_smoke.py`` holds the
+kernel against it on the card.  Nothing on the main path calls it.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .desc import DESC_WORDS, STATS_WORDS
+
+__all__ = ["megakernel", "megakernel_plain", "launch_count",
+           "reset_launch_count", "check_plan", "MAX_TN", "MAX_HD", "MAX_TK"]
+
+#: limits of the CUDA kernel's tiling: 512 threads × 2 float4 column
+#: groups per matmul thread, 8 head elements per lane in attention, and
+#: the two staged rows of x (2 · TK words) beside the K-slice partial
+#: sums (16 KB) in the H100's 227 KB of shared memory
+MAX_TN = 4096
+MAX_HD = 256
+MAX_TK = 26880
+
+_ROW_SPILL = 1 << 20
+_LAUNCHES = 0
+
+
+def launch_count() -> int:
+    """CUDA kernel launches since the last ``reset_launch_count``."""
+    return _LAUNCHES
+
+
+def reset_launch_count() -> None:
+    global _LAUNCHES
+    _LAUNCHES = 0
+
+
+def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
+    """Raise for a plan the CUDA kernel's tiling cannot run: tiles wider
+    than ``MAX_TN``, deeper than ``MAX_TK`` or with heads wider than
+    ``MAX_HD``, or matmul weights not addressable as float4."""
+    if statics["TN"] > MAX_TN or statics["TK"] > MAX_TK:
+        raise NotImplementedError(
+            f"tile TN={statics['TN']} TK={statics['TK']} exceeds "
+            f"{MAX_TN}x{MAX_TK}")
+    if statics["HD"] > MAX_HD or statics["HD"] % 2:
+        raise NotImplementedError(f"head_dim {statics['HD']}")
+    mm = descs[descs[:, 0] == 1]
+    if min(statics["STORE_CH"], statics["TN"]) % 4 or \
+            (mm[:, 8] % 4).any() or (mm[:, 9] % 4).any():
+        raise NotImplementedError("matmul weights must be float4-aligned")
+
+
+def megakernel(heap: torch.Tensor, descs: torch.Tensor,
+               statics: Mapping[str, Any]) -> None:
+    """One decode step: run the descriptor table ``descs`` ((steps · W,
+    36) int64, on the heap's device) against ``heap`` (flat float32) in
+    place.  A table for the card must pass ``check_plan`` (the executor
+    checks it once, at construction)."""
+    global _LAUNCHES
+    if heap.dtype != torch.float32 or heap.dim() != 1 \
+            or not heap.is_contiguous():
+        raise ValueError("heap must be a contiguous 1-D float32 tensor")
+    if descs.dtype != torch.int64 or descs.dim() != 2 \
+            or descs.shape[1] != DESC_WORDS or not descs.is_contiguous():
+        raise ValueError(f"descs must be a contiguous (rows, {DESC_WORDS}) "
+                         "int64 tensor")
+    if descs.device != heap.device:
+        raise ValueError("heap and descs must be on one device")
+    if heap.device.type == "cpu":
+        megakernel_plain(heap, descs, statics)
+        return
+    if heap.device.type != "cuda":
+        raise ValueError(f"no megakernel for device {heap.device}")
+    from .build import load_library
+    lib = load_library()
+    W = statics["W"]
+    with torch.cuda.device(heap.device):
+        stream = torch.cuda.current_stream(heap.device).cuda_stream
+        err = lib.mk_launch(heap.data_ptr(), descs.data_ptr(),
+                            descs.shape[0] // W, W, statics["TN"],
+                            statics["TK"], statics["HD"], statics["G"],
+                            statics["STORE_CH"], statics["STATS_OFF"],
+                            float(statics["THETA"]), stream)
+    if err != 0:
+        raise RuntimeError("megakernel launch failed: "
+                           + lib.mk_error_string(err).decode())
+    _LAUNCHES += 1
+
+
+# ---------------------------------------------------------------------------
+# The plain version.
+# ---------------------------------------------------------------------------
+
+
+def _f32(bits: int) -> float:
+    return float(np.array(bits, np.int64).astype(np.int32).view(np.float32))
+
+
+def _act(y: torch.Tensor, act_id: int) -> torch.Tensor:
+    if act_id == 1:
+        return F.silu(y)
+    if act_id == 2:
+        return F.gelu(y, approximate="tanh")
+    return y
+
+
+def megakernel_plain(heap: torch.Tensor, descs,
+                     statics: Mapping[str, Any]) -> None:
+    """The kernel's function with torch ops, one descriptor row at a time.
+
+    Every store writes the kernel's masked width: the valid columns
+    rounded up to ``STORE_CH`` chunks, capped at ``TN`` (the tail chunk
+    overhangs only into the row slot's zero padding).  The per-worker
+    counter block gets the same counts the kernel writes."""
+    rows_list = (descs.tolist() if isinstance(descs, torch.Tensor)
+                 else np.asarray(descs).tolist())
+    TN, HD, G = statics["TN"], statics["HD"], statics["G"]
+    chw = min(statics["STORE_CH"], TN)
+    theta = float(statics["THETA"])
+    half = HD // 2
+    inv_freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                       device=heap.device) / half)
+
+    def tile(off, ld, m, w):
+        return torch.as_strided(heap, (m, w), (ld, 1), off)
+
+    def width(valid):
+        return min(TN, -(-valid // chw) * chw) if valid > 0 else 0
+
+    def scalar(off):
+        return int(heap[off].item())
+
+    bulk = rows = fallbacks = 0
+    for d in rows_list:
+        code, m = d[0], d[1]
+        if code == 0:
+            continue
+        if d[30] > 0:                   # primary tile, demand-loaded
+            bulk, rows, fallbacks = bulk + 1, rows + d[30], fallbacks + 1
+        per_row_store = code in (7, 8)
+        bulk += m if per_row_store else 1
+        rows += m
+        if code == 1:                   # matmul + bias + activation
+            n, k = d[2], d[3]
+            ws = width(n)
+            y = tile(d[6], d[7], m, k) @ tile(d[8], d[9], k, ws)
+            if d[10] >= 0:
+                y = y + heap[d[10]:d[10] + ws]
+            tile(d[4], d[5], m, ws).copy_(_act(y, d[14]))
+        elif code == 2:                 # rmsnorm
+            n = d[2]
+            ws = width(n)
+            x = tile(d[6], d[7], m, n)
+            inv = torch.rsqrt(torch.sum(x * x, dim=1, keepdim=True) / n
+                              + _f32(d[17]))
+            w = heap[d[10]:d[10] + n]
+            wg = 1.0 + w if d[14] == 1 else w
+            out = tile(d[4], d[5], m, ws)
+            out[:, :n] = x * inv * wg
+            out[:, n:] = 0.0
+        elif code == 3:                 # rope (rotate-half, per head)
+            ws = width(d[2])
+            nh = TN // HD
+            pos = tile(d[19], d[20], m, 1)
+            ang = pos * inv_freq[None, :]
+            c, s = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+            x = tile(d[6], d[7], m, nh * HD).reshape(m, nh, HD)
+            x1, x2 = x[..., :half], x[..., half:]
+            rot = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+            out = torch.zeros((m, TN), dtype=heap.dtype, device=heap.device)
+            out[:, :nh * HD] = rot.reshape(m, nh * HD)
+            tile(d[4], d[5], m, ws).copy_(out[:, :ws])
+        elif code == 4:                 # glu: act(a) * b
+            ws = width(d[2])
+            tile(d[4], d[5], m, ws).copy_(
+                _act(tile(d[6], d[7], m, ws), d[14]) * tile(d[8], d[9], m, ws))
+        elif code == 5:                 # residual / scale-add
+            ws = width(d[2])
+            y = tile(d[6], d[7], m, ws) * _f32(d[17])
+            if d[8] >= 0:
+                y = y + tile(d[8], d[9], m, ws)
+            tile(d[4], d[5], m, ws).copy_(y)
+        elif code == 6:                 # GQA decode attention
+            ws = width(d[2])
+            scale = _f32(d[17])
+            out = torch.zeros((m, ws), dtype=heap.dtype, device=heap.device)
+            for r in range(m):
+                live = min(scalar(d[12] + r), d[3])
+                if live <= 0:
+                    continue
+                for gi in range(d[16]):
+                    q = tile(d[6] + r * d[7] + gi * G * HD, HD, G, HD) * scale
+                    kk = tile(d[8] + r * d[15] + gi * HD, d[9], live, HD)
+                    vv = tile(d[10] + r * d[15] + gi * HD, d[11], live, HD)
+                    p = torch.softmax(q @ kk.T, dim=-1)
+                    out[r, gi * G * HD:(gi + 1) * G * HD] = \
+                        (p @ vv).reshape(G * HD)
+            tile(d[4], d[5], m, ws).copy_(out)
+        elif code == 7:                 # KV cache row write at seq_lens[r]
+            ws = width(d[2])
+            for r in range(m):
+                dst = d[4] + r * d[15] + scalar(d[12] + r) * d[5]
+                heap[dst:dst + ws] = heap[d[6] + r * d[7]:
+                                          d[6] + r * d[7] + ws]
+        elif code == 8:                 # embedding rows by token id
+            ws = width(d[2])
+            for r in range(m):
+                src = d[8] + scalar(d[6] + r) * d[9]
+                heap[d[4] + r * d[5]:d[4] + r * d[5] + ws] = \
+                    heap[src:src + ws]
+        else:
+            raise NotImplementedError(f"megakernel task kind {code}")
+
+    stats = torch.zeros((STATS_WORDS,), dtype=heap.dtype)
+    stats[0], stats[1], stats[3] = bulk, rows % _ROW_SPILL, fallbacks
+    stats[4] = rows // _ROW_SPILL
+    off = statics["STATS_OFF"]
+    heap[off:off + STATS_WORDS] = stats.to(heap.device)

@@ -1,0 +1,220 @@
+"""Megakernel execution: a static plan compiled once, then a persistent
+executor that runs every decode step as ONE kernel launch against a
+device-resident heap.
+
+``compile_decode_megakernel`` lowers a config's decode step to a
+:class:`~.desc.MegakernelPlan`; :class:`MegakernelExecutor` makes it a
+live program, as the reference's executor does:
+
+* the heap is built once (``upload_count``): weights go into their slots
+  one tensor at a time, state slots start at zero;
+* the KV cache stays in the heap across steps (the kernel updates it in
+  place);
+* the per-step inputs (tokens, positions, seq_lens, live_lens) go into
+  the heap through one ``index_copy_`` before each launch.
+
+W > 1 workers (the event slice) raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..core.compile import CompileOptions, megakernelize
+from ..core.decompose import DecomposeConfig
+from ..core.lowering import build_decode_graph
+from ..device import resolve_device
+from ..models.lm import fill_params
+from .desc import STATS_WORDS, MegakernelPlan, lower_tgraph
+from .kernel import check_plan, megakernel
+
+__all__ = ["compile_decode_megakernel", "MegakernelExecutor",
+           "STATS_FIELDS", "decode_stats_row", "read_stats_block"]
+
+#: named field map of the per-worker STATS block: counter name → word.
+#: Word 4 is the 2^20-unit spill of ``row_copies``, folded back in by
+#: ``decode_stats_row``.
+STATS_FIELDS = {
+    "bulk_copies": 0,
+    "row_copies": 1,
+    "prefetch_tiles": 2,
+    "primary_fallbacks": 3,
+    "event_waits": 5,
+    "event_wait_violations": 6,
+    "event_signals": 7,
+    "pops_own": 8,
+    "pops_overflow": 9,
+    "steals": 10,
+    "idle_slots": 11,
+}
+
+ROW_SPILL_WORD = 4
+ROW_SPILL_UNIT = 1 << 20
+
+
+def decode_stats_row(v) -> Dict[str, int]:
+    """One worker's STATS block as named integer counters."""
+    out = {name: int(v[i]) for name, i in STATS_FIELDS.items()}
+    out["row_copies"] += ROW_SPILL_UNIT * int(v[ROW_SPILL_WORD])
+    return out
+
+
+def read_stats_block(heap: torch.Tensor, stats_offset: int,
+                     num_workers: int) -> List[Dict[str, int]]:
+    """The per-worker STATS blocks of a heap, one counter dict each."""
+    flat = heap[stats_offset:stats_offset + num_workers * STATS_WORDS]
+    flat = flat.cpu().numpy()
+    return [decode_stats_row(flat[w * STATS_WORDS:(w + 1) * STATS_WORDS])
+            for w in range(num_workers)]
+
+
+def compile_decode_megakernel(cfg, batch: int, max_seq: int,
+                              *, num_workers: int = 1) -> MegakernelPlan:
+    """Lower cfg's decode step: op graph → tGraph → descriptors, with the
+    reference's default compile options (tile rows capped at 8, the
+    megakernel's TM)."""
+    if num_workers != 1:
+        raise NotImplementedError(
+            "num_workers > 1 (in-heap event counters) is not ported yet")
+    g = build_decode_graph(cfg, batch, max_seq)
+    opts = CompileOptions(decompose=DecomposeConfig(max_rows=8))
+    return lower_tgraph(megakernelize(g, opts), cfg)
+
+
+class MegakernelExecutor:
+    """The live half of a compiled megakernel program.
+
+    Lifecycle::
+
+        ex = MegakernelExecutor(plan, cfg, device="cuda")
+        ex.bind(params)                       # the ONE heap build
+        logits = ex.step(tokens, seq_lens)    # index_copy_ + 1 launch
+        logits = ex.step(tokens, seq_lens + 1)  # state carried in-heap
+    """
+
+    def __init__(self, plan: MegakernelPlan, cfg, device=None):
+        self.plan = plan
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            check_plan(plan.statics, plan.descs)
+        self.upload_count = 0
+        self.state_scatter_count = 0
+        classes = plan.input_classes()
+        self._weights: List[str] = classes["weights"]
+        self._state: List[str] = classes["state"]
+
+        # flat heap indices of every per-step input element, in one
+        # int64 index for the per-step index_copy_
+        idx, self._entries = [], []
+        for name in classes["per_step"]:
+            slot = plan.layout[name]
+            cols = slot.shape[-1]
+            grid = (slot.offset + np.arange(slot.rows)[:, None] * slot.ld
+                    + np.arange(cols)[None, :])
+            self._entries.append((name, slot.rows * cols))
+            idx.append(grid.ravel())
+        self._upd_idx = torch.from_numpy(
+            np.concatenate(idx).astype(np.int64)).to(self.device)
+        self._descs = torch.from_numpy(plan.descs).to(self.device)
+        self.heap: Optional[torch.Tensor] = None
+
+    # ------------------------------------------------------------ the heap
+    def upload(self, heap: torch.Tensor) -> None:
+        """Adopt a full heap (weights included): once per ``bind``."""
+        self.heap = heap.to(self.device)
+        self.upload_count += 1
+
+    def bind(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Build the heap from graph-named weights, one tensor at a time;
+        state and per-step slots start at zero."""
+        heap = self.plan.alloc_heap(self.device)
+        for name in self._weights:
+            w = params["embed"].T if (name == "lm_head"
+                                      and "lm_head" not in params) \
+                else params[name]
+            self.plan.view(heap, name).copy_(w)
+        self.upload(heap)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Build the heap with random weights drawn straight into their
+        slots (``models.lm.fill_params``): no second copy of the weights
+        ever exists."""
+        heap = self.plan.alloc_heap(self.device)
+        fill_params(self.cfg, self._views(heap, self._weights), generator)
+        self.upload(heap)
+
+    def _views(self, heap, names) -> Dict[str, torch.Tensor]:
+        return {n: self.plan.view(heap, n) for n in names}
+
+    def weight_views(self) -> Dict[str, torch.Tensor]:
+        """Every weight as a strided view of the resident heap."""
+        assert self.heap is not None, "bind() first"
+        return self._views(self.heap, self._weights)
+
+    # --------------------------------------------------------------- state
+    def reset_state(self, slot: Optional[int] = None) -> None:
+        """Zero the KV cache in place: one batch row, or all of them."""
+        for v in self._views(self.heap, self._state).values():
+            (v if slot is None else v[slot]).zero_()
+
+    def read_state(self) -> Dict[str, torch.Tensor]:
+        """A copy of every state tensor (graph-shaped), weights untouched."""
+        return {n: v.clone() for n, v in
+                self._views(self.heap, self._state).items()}
+
+    def write_state(self, tensors: Mapping[str, torch.Tensor]) -> None:
+        """Write new values for every state tensor into the heap."""
+        for n, v in self._views(self.heap, self._state).items():
+            v.copy_(tensors[n])
+        self.state_scatter_count += 1
+
+    # ---------------------------------------------------------------- steps
+    def write_step_inputs(self, tokens, seq_lens, positions=None) -> None:
+        """Write one step's tokens, positions and lengths into the heap
+        (one ``index_copy_``)."""
+        lens = np.asarray(seq_lens, np.int64)
+        vals = {"tokens": np.asarray(tokens), "seq_lens": lens,
+                "live_lens": lens + 1,
+                "positions": lens if positions is None
+                else np.asarray(positions)}
+        flat = np.concatenate([np.asarray(vals[n], np.float32).reshape(size)
+                               for n, size in self._entries])
+        self.heap.index_copy_(0, self._upd_idx,
+                              torch.from_numpy(flat).to(self.device))
+
+    def launch(self) -> None:
+        """One kernel launch over the whole descriptor table."""
+        megakernel(self.heap, self._descs, self.plan.statics)
+
+    def step(self, tokens, seq_lens, positions=None) -> torch.Tensor:
+        """One decode step inside the kernel; returns the logits (B, V) on
+        the device.  The cache advances in the resident heap."""
+        assert self.heap is not None, "bind() before step()"
+        self.write_step_inputs(tokens, seq_lens, positions)
+        self.launch()
+        return self.plan.read_output(self.heap, "logits")
+
+    def run_once(self, bindings: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Build the heap from full bindings, run one step, return every
+        graph output (one-shot semantics, for tests)."""
+        self.upload(self.plan.build_heap(bindings, self.device))
+        self.step(bindings["tokens"], bindings["seq_lens"],
+                  bindings.get("positions"))
+        return {name: self.plan.read_output(self.heap, name)
+                for name in self.plan.compiled.graph.outputs}
+
+    # ------------------------------------------------------------ counters
+    def worker_counters(self) -> List[Dict[str, int]]:
+        """The kernel's per-worker counters of the LAST step."""
+        assert self.heap is not None, "bind() first"
+        return read_stats_block(self.heap, self.plan.stats_offset,
+                                self.plan.num_workers)
+
+    def pipeline_counters(self) -> Dict[str, int]:
+        """The kernel's counters of the LAST step, summed over workers."""
+        per_worker = self.worker_counters()
+        return {k: sum(d[k] for d in per_worker) for k in STATS_FIELDS}

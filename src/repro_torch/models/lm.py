@@ -1,0 +1,252 @@
+"""The dense decoder LM in PyTorch: the port's model oracle and its
+prefill path.
+
+It mirrors ``repro/models/lm.py`` (the reference) for the dense family
+(attention + gated MLP in every layer).  The MoE, SSM, hybrid and
+embedding-input families, and M-RoPE, are later slices and raise
+``NotImplementedError``.
+
+Parameters are a flat dict keyed by the decode graph's tensor names
+(``embed``, ``L0.wq``, ``L0.wi_gate``, ..., ``final_ln_w``, ``lm_head``;
+see ``core/lowering.py``), so a megakernel heap slot and a model weight
+are the same tensor: the torch model can run on strided views of the
+heap.  ``params_from_jax`` turns the reference's stacked parameter tree
+(as numpy arrays) into this dict.  The cache keeps the reference's
+``init_cache`` layout, ``{"k", "v"}: (n_blocks, 1, B, S, KV, hd)``.
+
+Unlike the reference, ``prefill_chunk`` updates the cache in place (it
+returns the same dict): a full-width cache is hundreds of megabytes.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .layers import act_fn, apply_rope, chunk_attention, rmsnorm, rope
+
+__all__ = ["block_structure", "check_dense", "param_specs", "fill_params",
+           "init_params", "params_from_jax", "init_cache",
+           "prefill_chunk", "serve_step"]
+
+
+def block_structure(cfg) -> Dict[str, Any]:
+    """Per-block layer layout: which positions are attn/ssm and mlp/moe."""
+    p = cfg.block_period
+    attn_pos = [i for i in range(p) if cfg.layer_kind(i) == "attn"]
+    ssm_pos = [i for i in range(p) if cfg.layer_kind(i) == "ssm"]
+    mlp_pos = [i for i in range(p) if cfg.ffn_kind(i) == "mlp"]
+    moe_pos = [i for i in range(p) if cfg.ffn_kind(i) == "moe"]
+    assert cfg.n_layers % p == 0, (cfg.n_layers, p)
+    return {
+        "period": p,
+        "n_blocks": cfg.n_layers // p,
+        "attn_pos": attn_pos,
+        "ssm_pos": ssm_pos,
+        "mlp_pos": mlp_pos,
+        "moe_pos": moe_pos,
+    }
+
+
+def check_dense(cfg) -> None:
+    """Raise for configurations outside this slice of the port."""
+    if cfg.embed_input or cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: embedding inputs and M-RoPE are not ported yet")
+    for i in range(cfg.n_layers):
+        if cfg.layer_kind(i) != "attn" or cfg.ffn_kind(i) != "mlp":
+            raise NotImplementedError(
+                f"{cfg.name}: only the dense family (attention + MLP in "
+                "every layer) is ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Parameters.
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:
+    """Every weight by graph name: (shape, init std), where std ``None``
+    means ones (norm weights) and ``0.0`` zeros (biases).  The scales are
+    the reference's ``init_params`` scales."""
+    check_dense(cfg)
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    specs: Dict[str, Tuple[Tuple[int, ...], Optional[float]]] = {
+        "embed": ((cfg.vocab, d), 0.02)}
+    for i in range(cfg.n_layers):
+        L = f"L{i}"
+        specs[f"{L}.ln_w"] = ((d,), None)
+        specs[f"{L}.wq"] = ((d, qd), d ** -0.5)
+        specs[f"{L}.wk"] = ((d, kvd), d ** -0.5)
+        specs[f"{L}.wv"] = ((d, kvd), d ** -0.5)
+        if cfg.qkv_bias:
+            specs[f"{L}.bq"] = ((qd,), 0.0)
+            specs[f"{L}.bk"] = ((kvd,), 0.0)
+            specs[f"{L}.bv"] = ((kvd,), 0.0)
+        specs[f"{L}.wo"] = ((qd, d), qd ** -0.5)
+        specs[f"{L}.ln2_w"] = ((d,), None)
+        specs[f"{L}.wi_gate"] = ((d, f), d ** -0.5)
+        specs[f"{L}.wi_up"] = ((d, f), d ** -0.5)
+        specs[f"{L}.wo2"] = ((f, d), f ** -0.5)
+    specs["final_ln_w"] = ((d,), None)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ((d, cfg.vocab), d ** -0.5)
+    return specs
+
+
+def fill_params(cfg, views: Mapping[str, torch.Tensor],
+                generator: torch.Generator) -> None:
+    """Draw every weight of ``param_specs`` in place into ``views`` (any
+    tensors of the right shapes, e.g. strided views of a megakernel
+    heap), one tensor at a time.  A tied ``lm_head`` view, where given,
+    receives ``embed.T``."""
+    for name, (_shape, std) in param_specs(cfg).items():
+        v = views[name]
+        if std is None:
+            v.fill_(1.0)
+        elif std == 0.0:
+            v.zero_()
+        else:
+            v.normal_(0.0, std, generator=generator)
+    if cfg.tie_embeddings and "lm_head" in views:
+        views["lm_head"].copy_(views["embed"].T)
+
+
+def init_params(cfg, generator: Optional[torch.Generator] = None,
+                device=None) -> Dict[str, torch.Tensor]:
+    """Fresh float32 weights (flat, graph-named); random draws come from
+    ``generator`` (seed 0 on ``device`` when omitted)."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    params = {name: torch.empty(shape, dtype=torch.float32, device=device)
+              for name, (shape, _std) in param_specs(cfg).items()}
+    fill_params(cfg, params, generator)
+    return params
+
+
+def params_from_jax(np_tree, cfg, device=None) -> Dict[str, torch.Tensor]:
+    """The reference's parameter tree (``repro.models.init_params``,
+    leaves as numpy arrays) as the port's flat float32 dict."""
+    check_dense(cfg)
+    device = resolve_device(device)
+    st = block_structure(cfg)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    blocks = np_tree["blocks"]
+    attn, mlp = blocks["attn"], blocks["mlp"]
+    out = {"embed": t(np_tree["embed"]), "final_ln_w": t(np_tree["final_ln"])}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = t(np_tree["lm_head"])
+    for i in range(cfg.n_layers):
+        L = f"L{i}"
+        blk, pos = divmod(i, st["period"])
+        ai, mi = st["attn_pos"].index(pos), st["mlp_pos"].index(pos)
+        out[f"{L}.ln_w"] = t(attn["ln"][blk, ai])
+        for nm in ("wq", "wk", "wv", "wo"):
+            out[f"{L}.{nm}"] = t(attn[nm][blk, ai])
+        if cfg.qkv_bias:
+            for nm in ("bq", "bk", "bv"):
+                out[f"{L}.{nm}"] = t(attn[nm][blk, ai])
+        out[f"{L}.ln2_w"] = t(mlp["ln"][blk, mi])
+        wi = np.asarray(mlp["wi"][blk, mi], np.float32)      # (D, 2, F)
+        out[f"{L}.wi_gate"], out[f"{L}.wi_up"] = t(wi[:, 0]), t(wi[:, 1])
+        out[f"{L}.wo2"] = t(mlp["wo"][blk, mi])
+    return out
+
+
+def init_cache(cfg, batch: int, max_seq: int,
+               device=None) -> Dict[str, torch.Tensor]:
+    """Zeroed float32 KV cache in the reference's stacked layout."""
+    check_dense(cfg)
+    device = resolve_device(device)
+    st = block_structure(cfg)
+    shape = (st["n_blocks"], len(st["attn_pos"]), batch, max_seq,
+             cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=torch.float32, device=device),
+            "v": torch.zeros(shape, dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill and the decode step.
+# ---------------------------------------------------------------------------
+
+
+def _attn_chunk(h, params, L, cache_k, cache_v, cfg, cos, sin, seq_lens,
+                valid):
+    """Attention sub-layer for an N-token chunk, h (B, N, D).  The chunk's
+    K/V land in the cache at ``seq_lens[b] + i`` (in place; padding
+    positions write nothing), then every chunk query attends over it."""
+    b, n, _d = h.shape
+    x = rmsnorm(h, params[f"{L}.ln_w"], cfg.norm_eps, cfg.gemma_norm)
+    q = x @ params[f"{L}.wq"]
+    k = x @ params[f"{L}.wk"]
+    v = x @ params[f"{L}.wv"]
+    if cfg.qkv_bias:
+        q = q + params[f"{L}.bq"]
+        k = k + params[f"{L}.bk"]
+        v = v + params[f"{L}.bv"]
+    q = q.reshape(b, n, cfg.n_heads, cfg.hd)
+    k = k.reshape(b, n, cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(b, n, cfg.n_kv_heads, cfg.hd)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    pos = seq_lens[:, None] + torch.arange(n, device=h.device)[None, :]
+    keep = valid & (pos < cache_k.shape[1])
+    bidx = torch.arange(b, device=h.device)[:, None].expand(b, n)[keep]
+    cache_k[bidx, pos[keep]] = k[keep]
+    cache_v[bidx, pos[keep]] = v[keep]
+    o = chunk_attention(q, cache_k, cache_v, seq_lens)
+    o = o.reshape(b, n, cfg.n_heads * cfg.hd) @ params[f"{L}.wo"]
+    return h + o
+
+
+def _mlp(h, params, L, cfg):
+    x = rmsnorm(h, params[f"{L}.ln2_w"], cfg.norm_eps, cfg.gemma_norm)
+    gate = x @ params[f"{L}.wi_gate"]
+    up = x @ params[f"{L}.wi_up"]
+    return h + (act_fn(cfg.activation)(gate) * up) @ params[f"{L}.wo2"]
+
+
+def prefill_chunk(params: Mapping[str, torch.Tensor], cfg,
+                  cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                  seq_lens: torch.Tensor,
+                  chunk_lens: Optional[torch.Tensor] = None):
+    """Consume N prompt tokens per request in one step.
+
+    tokens (B, N) integer; seq_lens (B,) = live length *before* the chunk
+    (token i lands at position seq_lens + i); chunk_lens (B,) = valid
+    tokens per request (default N).  Positions >= chunk_lens are padding:
+    they write no cache state and their logits are garbage.  Returns
+    (logits (B, N, V) float32, cache), the cache updated in place."""
+    check_dense(cfg)
+    h = params["embed"][tokens.long()]
+    b, n = h.shape[:2]
+    seq_lens = seq_lens.long()
+    if chunk_lens is None:
+        chunk_lens = torch.full((b,), n, dtype=torch.long, device=h.device)
+    valid = (torch.arange(n, device=h.device)[None, :]
+             < chunk_lens.long()[:, None])
+    if cfg.gemma_norm:
+        h = h * math.sqrt(cfg.d_model)
+    pos = seq_lens[:, None] + torch.arange(n, device=h.device)[None, :]
+    cos, sin = rope(pos, cfg.hd, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        L = f"L{i}"
+        h = _attn_chunk(h, params, L, cache["k"][i, 0], cache["v"][i, 0],
+                        cfg, cos, sin, seq_lens, valid)
+        h = _mlp(h, params, L, cfg)
+    h = rmsnorm(h, params["final_ln_w"], cfg.norm_eps, cfg.gemma_norm)
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return (h @ head).float(), cache
+
+
+def serve_step(params, cfg, cache, tokens: torch.Tensor,
+               seq_lens: torch.Tensor):
+    """One decode step: ``prefill_chunk`` with a width-1 chunk.  tokens
+    (B,); returns (logits (B, V) float32, cache)."""
+    logits, cache = prefill_chunk(params, cfg, cache, tokens[:, None],
+                                  seq_lens)
+    return logits[:, 0], cache

@@ -1,0 +1,77 @@
+"""The port stands alone: importing it pulls in neither jax nor the
+reference package, and its entry points never fall back to the CPU."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith(("jax.", "jaxlib"))
+             or n == "repro" or n.startswith("repro."))
+n = sum(1 for k in sys.modules if k.startswith("repro_torch"))
+print("BAD", bad, "N", n)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, check=True).stdout
+    assert "BAD [] " in out, out
+    assert int(out.split("N")[-1]) > 20, out
+
+
+def test_compile_without_device_needs_a_card():
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("deepseek-7b").reduced(),
+                              n_layers=1)
+    if torch.cuda.is_available():
+        assert compile(cfg, 1, 8).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            compile(cfg, 1, 8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            compile(cfg, 1, 8, backend="megakernel")
+    assert compile(cfg, 1, 8, device="cpu").device.type == "cpu"
+
+
+def test_later_slices_raise():
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    moe = get_config("granite-moe-1b-a400m").reduced()
+    with pytest.raises(NotImplementedError):
+        compile(moe, 1, 8, device="cpu")
+    dense = dataclasses.replace(get_config("deepseek-7b").reduced(),
+                                n_layers=1)
+    with pytest.raises(NotImplementedError):
+        compile(dense, 1, 8, backend="megakernel", device="cpu",
+                num_workers=2)
+
+
+def test_later_lowerings_raise():
+    """The dynamic scheduler, the trace ring and the multichip stamp are
+    later slices: asking for them raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compile import CompileOptions, megakernelize
+    from repro_torch.core.lowering import build_decode_graph
+    from repro_torch.megakernel.desc import lower_tgraph, stamp_multichip
+    cfg = dataclasses.replace(get_config("deepseek-7b").reduced(),
+                              n_layers=1)
+    compiled = megakernelize(build_decode_graph(cfg, 1, 8), CompileOptions())
+    with pytest.raises(NotImplementedError):
+        lower_tgraph(compiled, cfg, scheduler="dynamic")
+    with pytest.raises(NotImplementedError):
+        lower_tgraph(compiled, cfg, trace=True)
+    with pytest.raises(NotImplementedError):
+        stamp_multichip(lower_tgraph(compiled, cfg), 2)
