@@ -11,8 +11,10 @@ Backends:
 
 * ``"torch"``      — the torch model (``models.lm``), the decode oracle;
 * ``"megakernel"`` — the hand-written CUDA persistent kernel: one launch
-  per decode step against the device-resident heap (the plain PyTorch
-  version of the kernel on a CPU heap).
+  per decode step against the device-resident heap, W workers (one CTA
+  each) synchronised by in-heap event counters (the plain PyTorch
+  version of the kernel on a CPU heap).  ``trace=True`` adds the trace
+  ring, read back by ``Program.trace()``.
 
 ``prefill`` runs the torch ``prefill_chunk`` against the program's state
 on both: the megakernel program reads the cache out of its heap, runs it
@@ -223,11 +225,13 @@ class MegakernelProgram(Program):
 
     backend = "megakernel"
 
-    def __init__(self, cfg, batch, max_seq, device, num_workers: int = 1):
+    def __init__(self, cfg, batch, max_seq, device, num_workers: int = 1,
+                 trace: bool = False):
         super().__init__(cfg, batch, max_seq, device)
         from ..megakernel import MegakernelExecutor, compile_decode_megakernel
         self.plan = compile_decode_megakernel(cfg, batch, max_seq,
-                                              num_workers=num_workers)
+                                              num_workers=num_workers,
+                                              trace=trace)
         self._compiled = self.plan.compiled
         self.executor = MegakernelExecutor(self.plan, cfg, device)
         self._smap = state_map(cfg)
@@ -245,6 +249,46 @@ class MegakernelProgram(Program):
         if self.step_count > 0:
             out.update(self.executor.pipeline_counters())
         return out
+
+    @property
+    def worker_stats(self) -> Dict[str, Any]:
+        """The W-worker schedule: the compiler's partition (queue
+        lengths, the cross-worker dependency cut, its estimated makespan
+        and per-worker utilization under the reference's cost model) and,
+        once a step has run, the kernel's own per-worker counters of the
+        last step with the event totals."""
+        part = self.plan.compiled.partition
+        out: Dict[str, Any] = {
+            "scheduler": "static",
+            "num_workers": part.num_workers,
+            "requested_workers": part.requested_workers,
+            "queue_lens": [len(q) for q in part.queues],
+            "cross_worker_deps": len(part.cross_deps),
+            "partition_steps": part.num_steps,
+            "num_events": self.plan.num_events,
+            "partition_makespan_est_us": part.est_makespan * 1e6,
+            "worker_utilization": part.worker_utilization(),
+        }
+        if self.step_count > 0:
+            per_worker = self.executor.worker_counters()
+            out["kernel_workers"] = per_worker
+            for k in ("event_waits", "event_wait_violations",
+                      "event_signals"):
+                out[k] = sum(d[k] for d in per_worker)
+        return out
+
+    def trace(self):
+        """The kernel-written trace ring of the LAST step as an
+        ``obs.TaskTrace`` (logical ticks).  Needs ``trace=True`` at
+        compile and at least one step."""
+        from ..obs import decode_ring
+        if not self.plan.trace:
+            raise ValueError("program compiled without trace=True: the "
+                             "kernel wrote no trace ring")
+        if self.step_count == 0:
+            raise ValueError("no step executed yet: the trace ring is "
+                             "empty; run step() first")
+        return decode_ring(self.plan, self.executor.task_ring())
 
     def bind(self, params) -> "Program":
         """Write the weights into the heap, exactly once; prefill then
@@ -294,16 +338,20 @@ class MegakernelProgram(Program):
 
 
 def compile(cfg, batch: int, max_seq: int, backend: str = "torch", *,
-            device=None, num_workers: int = 1) -> Program:
+            device=None, num_workers: int = 1,
+            trace: bool = False) -> Program:
     """Compile ``cfg``'s decode step once; returns a stateful
     :class:`Program` for ``backend`` ("torch" | "megakernel") on
     ``device`` (the card unless ``device="cpu"``; with no card and no
     device this raises).  The compiler runs with the reference's default
-    options; ``num_workers`` > 1 is a later slice and raises."""
+    options.  For the megakernel, ``num_workers`` is the most workers the
+    partitioner may use (one CTA each on the card) and ``trace`` adds
+    the trace ring; the torch backend ignores both."""
     device = resolve_device(device)
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend == "megakernel":
-        return MegakernelProgram(cfg, batch, max_seq, device, num_workers)
+        return MegakernelProgram(cfg, batch, max_seq, device, num_workers,
+                                 trace)
     return TorchProgram(cfg, batch, max_seq, device)

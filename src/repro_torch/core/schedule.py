@@ -65,10 +65,10 @@ __all__ = [
 ]
 
 #: per-worker roofline terms: one worker owns 1/Wth of the chip (the
-#: paper's SM-granularity cost model); every constant below — bandwidths
-#: AND latency terms — comes from ``roofline/hw.py``, the same source
-#: ``runtime_sim.SimConfig`` defaults from, so scheduler and simulator
-#: can't drift
+#: paper's SM-granularity cost model).  Every constant below comes from
+#: ``roofline/hw.py``: the reference's TPU cost model, kept so that the
+#: port's partition equals the reference's.  They are not the H100's
+#: figures.
 _WORKER_FLOPS = TPU_V5E.peak_flops_bf16 / WORKERS_PER_CHIP
 _WORKER_BW = TPU_V5E.hbm_bw / WORKERS_PER_CHIP
 

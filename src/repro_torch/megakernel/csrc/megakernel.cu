@@ -3,20 +3,40 @@
 //
 // Replaces: the Pallas persistent megakernel of the JAX package,
 // repro/kernels/megakernel/kernel.py `make_megakernel` (pallas_call at
-// kernel.py:1175), for the static scheduler at W = 1 and the dense task
+// kernel.py:1175), for the static W-worker scheduler and the dense task
 // kinds 0-8 (noop, matmul + bias + activation, rmsnorm, rope, glu,
-// residual/scale-add, GQA decode attention, KV cache update, embedding).
+// residual/scale-add, GQA decode attention, KV cache update, embedding),
+// with the in-heap event wait and signal and the trace ring.
 //
-// Design: one CTA of 512 threads per worker (W = 1 here: one CTA).  The
-// CTA walks its descriptor rows in order; each kind is a __device__
+// Design: one CTA of 512 threads per worker, all W CTAs resident at once
+// (a cooperative launch, which refuses a grid that cannot be).  CTA w
+// walks the descriptor rows s * W + w in order; each kind is a __device__
 // function selected by a switch on word 0, with __syncthreads() between
-// tasks so that task t's heap stores are visible to task t + 1, and the
-// next descriptor row is fetched while the current task runs.  Offsets
-// are int64: a full-width heap holds 11.85 G words.  Every primary tile is
-// read on demand through the descriptor's addresses (words 28-30 describe
-// the same tile); the prefetch plan (words 24-27) is read and ignored for
-// now.  Stores write only the valid columns, rounded up to STORE_CH
-// chunks and capped at TN, as the reference's masked stores do.
+// tasks so that a task's heap stores are visible to the CTA's next task,
+// and the next descriptor row is fetched while the current task runs.
+// Offsets are int64: a full-width heap holds 11.85 G words.
+//
+// Across CTAs, tasks synchronise through the event counters in the heap
+// (descriptor words 32-34), whatever the row's kind, noops included:
+//   wait   (word 32 >= 0): before the task's first load, thread 0 spins
+//          with acquire loads until the counter reaches the trigger count
+//          (word 33), bounded by a %globaltimer deadline past which the
+//          fault goes into the worker's counter block and the kernel
+//          traps; then __syncthreads();
+//   signal (word 34 >= 0): after the task's stores, __syncthreads(), then
+//          thread 0 fences and adds 1 to the counter atomically.
+// Every load of data another CTA may write in the launch is a plain
+// coherent load; only the matmul's weights (written by no task) go
+// through the non-coherent path.  The trace ring, when on, takes one
+// tick (an atomicAdd on the counter at the ring's head) after the wait
+// and one after the stores, before the signal, so that a waiter's start
+// always follows its signallers' ends, and writes one 8-word record per
+// slot.  Every primary tile is read on demand through the descriptor's
+// addresses (words 28-30 describe the same tile); the prefetch plan
+// (words 24-27) is read and ignored: it assumes that workers stay within
+// one step of each other, which the card does not give.  Stores write
+// only the valid columns, rounded up to STORE_CH chunks and capped at TN,
+// as the reference's masked stores do.
 //
 // Bound: at full width a decode step is bound by its weight bytes.
 // deepseek-7b (30 layers, d = 4096, d_ff = 11008, vocab 102400) reads
@@ -27,19 +47,20 @@
 // 8-16 deep, reading weight rows that are contiguous along N so a warp's
 // loads coalesce; narrow tiles split K across thread groups and reduce
 // through shared memory.  Attention splits each (row, head)'s cache
-// positions across warps and merges their online-softmax states.  Still,
-// one CTA keeps only one SM's worth of loads in flight and is far from
-// the bound: more workers (W > 1, one CTA per SM with in-heap events) and
-// the prefetch pipeline are the later changes that close the gap.
+// positions across warps and merges their online-softmax states.  One
+// CTA keeps one SM's worth of loads in flight, so the W workers (one per
+// SM) are what bring the weight stream towards the card's rate.
 //
 // Numerics follow the reference in float32: no TF32, no fast math, GELU
-// in its tanh form.
+// in its tanh form.  A task's arithmetic does not depend on W, so the
+// outputs are bitwise equal across W.
 //
 // Built by repro_torch/megakernel/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes.
 
 #include <cuda_runtime.h>
+#include <cstdio>
 
 extern __shared__ __align__(16) unsigned char smem_raw[];
 
@@ -53,7 +74,12 @@ constexpr int HPL = 8;             // attention head elements per lane
 constexpr int DESC_WORDS = 36;
 constexpr int STATS_WORDS = 12;
 constexpr int HEAD_BYTES = 384;    // descriptor row + reduction words
+constexpr int TRACE_HEADER = 8;
+constexpr int TRACE_WORDS = 8;
 constexpr long long ROW_SPILL = 1LL << 20;
+// the code mk_launch returns for a grid that cannot be co-resident
+constexpr int ERR_NOT_RESIDENT = static_cast<int>(
+    cudaErrorCooperativeLaunchTooLarge);
 
 struct Statics {
   long long tn;          // tile width TN
@@ -62,6 +88,9 @@ struct Statics {
   long long g;           // query heads per KV head
   long long store_ch;    // masked-store chunk width
   long long stats_off;   // heap offset of the per-worker counter blocks
+  long long event_off;   // heap offset of the event counters
+  long long tr_off;      // heap offset of the trace ring, -1: no ring
+  long long spin_ns;     // deadline of one event wait
   float theta;           // RoPE base
 };
 
@@ -98,6 +127,41 @@ __device__ __forceinline__ float act(float y, long long id) {
     return 0.5f * y * (1.0f + tanhf(c * (y + 0.044715f * y * y * y)));
   }
   return y;
+}
+
+// Acquire load at GPU scope: the loads that follow it (after the CTA's
+// barrier) see every store released before the value it read.
+__device__ __forceinline__ float ld_acquire(const float* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return __uint_as_float(v);
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A wait that outlived its deadline: the lowering or the launch is wrong.
+// The fault goes into the worker's counter block (word 6 +1, words 8-11:
+// row, event, counter seen, -1) and the kernel traps, so that the next
+// synchronisation on the host raises instead of hanging.
+__device__ __noinline__ void spin_fault(float* heap, const Statics& S,
+                                        long long w, long long row,
+                                        long long ev, float seen,
+                                        long long want) {
+  float* st = heap + S.stats_off + w * STATS_WORDS;
+  st[6] += 1.0f;
+  st[8] = static_cast<float>(row);
+  st[9] = static_cast<float>(ev);
+  st[10] = seen;
+  st[11] = -1.0f;
+  __threadfence_system();
+  printf("megakernel: worker %lld row %lld waited past its deadline on "
+         "event %lld (counter %.0f of %lld)\n", w, row, ev, seen, want);
+  __trap();
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -412,8 +476,10 @@ megakernel(float* heap, const long long* __restrict__ descs,
   const long long* row0 = descs + w * DESC_WORDS;
   const long long stride = num_workers * DESC_WORDS;
   // counters (thread 0): tile transfers, rows in them, primary tiles
-  // demand-loaded -- the same counts the plain version writes
+  // demand-loaded, event waits, wait violations, event signals -- the
+  // same counts the plain version writes
   long long bulk = 0, rows = 0, fallbacks = 0;
+  long long waits = 0, violations = 0, signals = 0;
   if (threadIdx.x < DESC_WORDS && num_steps > 0)
     sm.d[threadIdx.x] = row0[threadIdx.x];
   for (long long s = 0; s < num_steps; ++s) {
@@ -423,7 +489,32 @@ megakernel(float* heap, const long long* __restrict__ descs,
     if (threadIdx.x < DESC_WORDS && s + 1 < num_steps)
       next = row0[(s + 1) * stride + threadIdx.x];
     const long long* d = sm.d;
-    switch (d[0]) {
+    // thread 0 keeps the words it needs after sm.d is overwritten
+    const long long kind = d[0], m = d[1], prim = d[30];
+    const long long wait_ev = d[32], wait_cnt = d[33], sig_ev = d[34];
+    float t_start = 0.0f;
+    if (threadIdx.x == 0) {
+      if (wait_ev >= 0) {
+        const float* ev = heap + S.event_off + wait_ev;
+        const float want = static_cast<float>(wait_cnt);
+        float seen = ld_acquire(ev);
+        if (seen < want) {
+          const unsigned long long t0 = global_ns();
+          while ((seen = ld_acquire(ev)) < want) {
+            if (global_ns() - t0 > static_cast<unsigned long long>(S.spin_ns))
+              spin_fault(heap, S, w, s * num_workers + w, wait_ev, seen,
+                         wait_cnt);
+            __nanosleep(32);
+          }
+        }
+        __threadfence();
+        ++waits;
+        if (seen > want) ++violations;
+      }
+      if (S.tr_off >= 0) t_start = atomicAdd(heap + S.tr_off, 1.0f);
+    }
+    __syncthreads();                    // the wait held
+    switch (kind) {
       case 0: break;
       case 1: k_matmul(heap, d, S, sm); break;
       case 2: k_rmsnorm(heap, d, S, sm); break;
@@ -435,13 +526,33 @@ megakernel(float* heap, const long long* __restrict__ descs,
       case 8: k_embed(heap, d, S); break;
       default: __trap();                // a kind of a later slice
     }
-    if (threadIdx.x == 0 && d[0] != 0) {
-      if (d[30] > 0) { ++bulk; rows += d[30]; ++fallbacks; }
-      bulk += (d[0] == 7 || d[0] == 8) ? d[1] : 1;
-      rows += d[1];
-    }
     __syncthreads();                    // the task's stores landed
     if (threadIdx.x < DESC_WORDS) sm.d[threadIdx.x] = next;
+    if (threadIdx.x == 0) {
+      if (kind != 0) {
+        if (prim > 0) { ++bulk; rows += prim; ++fallbacks; }
+        bulk += (kind == 7 || kind == 8) ? m : 1;
+        rows += m;
+      }
+      if (S.tr_off >= 0) {
+        const float t_end = atomicAdd(heap + S.tr_off, 1.0f);
+        float* rec = heap + S.tr_off + TRACE_HEADER
+                     + (s * num_workers + w) * TRACE_WORDS;
+        rec[0] = static_cast<float>(w);
+        rec[1] = static_cast<float>(s * num_workers + w);
+        rec[2] = static_cast<float>(kind);
+        rec[3] = t_start;
+        rec[4] = t_end;
+        rec[5] = -1.0f;
+        rec[6] = wait_ev >= 0 ? static_cast<float>(wait_cnt) : 0.0f;
+        rec[7] = 0.0f;
+      }
+      if (sig_ev >= 0) {                // release this task's stores
+        __threadfence();
+        atomicAdd(heap + S.event_off + sig_ev, 1.0f);
+        ++signals;
+      }
+    }
   }
   if (threadIdx.x == 0) {
     float* st = heap + S.stats_off + w * STATS_WORDS;
@@ -450,30 +561,69 @@ megakernel(float* heap, const long long* __restrict__ descs,
     st[1] = static_cast<float>(rows % ROW_SPILL);
     st[3] = static_cast<float>(fallbacks);
     st[4] = static_cast<float>(rows / ROW_SPILL);
+    st[5] = static_cast<float>(waits);
+    st[6] = static_cast<float>(violations);
+    st[7] = static_cast<float>(signals);
   }
+}
+
+size_t smem_bytes(long long tk, long long hd) {
+  const long long x_words = RP * tk > NWARP * (hd + 2) ? RP * tk
+                                                       : NWARP * (hd + 2);
+  return HEAD_BYTES + sizeof(float) * (RP * NT * VEC + x_words);
+}
+
+// CTAs of the kernel that can be resident at once on the current device
+// with this much shared memory (0 with the CUDA error in *err).
+long long resident_ctas(size_t smem, cudaError_t* err) {
+  *err = cudaFuncSetAttribute(megakernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+  if (*err != cudaSuccess) return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((*err = cudaGetDevice(&dev)) != cudaSuccess) return 0;
+  if ((*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev)) != cudaSuccess) return 0;
+  if ((*err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, megakernel, NT, smem)) != cudaSuccess) return 0;
+  return static_cast<long long>(per_sm) * sms;
 }
 
 }  // namespace
 
+// The most workers (CTAs) that can be resident at once for a plan with
+// these statics; negative: minus the CUDA error.
+extern "C" long long mk_max_workers(long long tk, long long hd) {
+  cudaError_t err;
+  const long long n = resident_ctas(smem_bytes(tk, hd), &err);
+  return err == cudaSuccess ? n : -static_cast<long long>(err);
+}
+
 // One launch: `num_workers` CTAs walk the (num_steps, num_workers)
-// descriptor grid against the heap on `stream`.  Returns the CUDA error
-// of the launch (0 on success).
+// descriptor grid against the heap on `stream`, all resident at once (a
+// cooperative launch; a grid that cannot be co-resident is refused with
+// ERR_NOT_RESIDENT before anything runs).  `tr_off` < 0: no trace ring.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int mk_launch(float* heap, const long long* descs,
                          long long num_steps, long long num_workers,
                          long long tn, long long tk, long long hd,
                          long long g, long long store_ch,
-                         long long stats_off, double theta, void* stream) {
-  Statics S{tn, tk, hd, g, store_ch, stats_off, static_cast<float>(theta)};
-  const long long x_words = RP * tk > NWARP * (hd + 2) ? RP * tk
-                                                       : NWARP * (hd + 2);
-  const size_t smem = HEAD_BYTES + sizeof(float) * (RP * NT * VEC + x_words);
-  cudaError_t err = cudaFuncSetAttribute(
-      megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                         long long stats_off, long long event_off,
+                         long long tr_off, long long spin_ns, double theta,
+                         void* stream) {
+  Statics S{tn, tk, hd, g, store_ch, stats_off, event_off, tr_off, spin_ns,
+            static_cast<float>(theta)};
+  const size_t smem = smem_bytes(tk, hd);
+  cudaError_t err;
+  const long long resident = resident_ctas(smem, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  megakernel<<<static_cast<unsigned>(num_workers), NT, smem,
-               static_cast<cudaStream_t>(stream)>>>(heap, descs, num_steps,
-                                                    num_workers, S);
+  if (num_workers < 1 || num_workers > resident) return ERR_NOT_RESIDENT;
+  void* args[] = {&heap, &descs, &num_steps, &num_workers, &S};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(megakernel),
+      dim3(static_cast<unsigned>(num_workers)), dim3(NT), args, smem,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,12 +1,12 @@
 """Megakernel lowering: CompiledTGraph → (heap layout, task descriptors).
 
 The port's copy of ``repro/kernels/megakernel/desc.py`` (the reference)
-for the static scheduler and the dense task kinds.  Every task becomes a
-``DESC_WORDS`` = 36-word descriptor; the heap is one flat float32 buffer
-holding every graph tensor.  A tensor of shape ``(..., cols)`` is stored
-as ``rows = prod(shape[:-1])`` rows with padded row stride
-``ld = align128(cols + TN)``, so a TN-wide tile access from any legal
-column stays inside its own row slot.
+for the static W-worker scheduler and the dense task kinds.  Every task
+becomes a ``DESC_WORDS`` = 36-word descriptor; the heap is one flat
+float32 buffer holding every graph tensor.  A tensor of shape
+``(..., cols)`` is stored as ``rows = prod(shape[:-1])`` rows with padded
+row stride ``ld = align128(cols + TN)``, so a TN-wide tile access from
+any legal column stays inside its own row slot.
 
 What differs from the reference:
 
@@ -17,9 +17,9 @@ What differs from the reference:
   (sign-extended);
 * ``build_heap`` writes into a device tensor one binding at a time and
   never builds a host-side image of the heap;
-* the dynamic scheduler, the multichip stamp and the trace ring are later
-  slices: asking for them raises ``NotImplementedError``, as do the task
-  kinds of the MoE and SSM families.
+* the dynamic scheduler and the multichip stamp are later slices: asking
+  for them raises ``NotImplementedError``, as do the task kinds of the
+  MoE and SSM families.
 
 Descriptor words (per kind, see ``lower_tgraph``):
    0 kind   1 m      2 n      3 k      4 out_off 5 ldo
@@ -27,12 +27,20 @@ Descriptor words (per kind, see ``lower_tgraph``):
   12 d_off 13 ldd   14 act   15 aux0  16 aux1   17 fbits0
   18 fbits1 19 e_off 20 lde  21 aux2  22 aux3   23 aux4
   24-26 prefetch plan for the next task, 27 self_pf (planned as the
-  reference plans them; the port's kernel reads and ignores them for
-  now), 28-30 the task's own primary tile record (off, ld, rows),
-  32-34 event wait/signal (-1 at W = 1), 35 affinity (0).
+  reference plans them; the port's kernel reads and ignores them),
+  28-30 the task's own primary tile record (off, ld, rows),
+  32 wait event (-1: none), 33 its trigger count, 34 signalled event
+  (-1: none), 35 affinity (0).
 
-The heap tail carries the event table (empty at W = 1) and one
-``STATS_WORDS`` counter block per worker at ``stats_offset``.
+The descriptor grid is ``(num_steps * W, DESC_WORDS)``: row ``s * W + w``
+is worker ``w``'s task at step ``s`` (a noop where the worker idles).
+The heap tail carries, in this order, the event table (one counter per
+event with a cross-worker consumer, at ``event_offset``), one
+``STATS_WORDS`` counter block per worker (at ``stats_offset``) and, with
+``trace=True``, the trace ring (at ``ring_offset``: a ``TRACE_HEADER``
+whose word 0 is the tick counter, then one ``TRACE_WORDS`` record per
+grid slot).  The ring comes last so that the trace-off layout is
+bitwise identical.
 """
 from __future__ import annotations
 
@@ -46,8 +54,9 @@ import torch
 from ..core.compile import CompiledTGraph
 from ..core.graph import OpKind
 
-__all__ = ["KIND_CODES", "DESC_WORDS", "STATS_WORDS", "PER_STEP_INPUTS",
-           "TensorSlot", "MegakernelPlan", "lower_tgraph", "stamp_multichip"]
+__all__ = ["KIND_CODES", "DESC_WORDS", "STATS_WORDS", "TRACE_WORDS",
+           "TRACE_HEADER", "PER_STEP_INPUTS", "TensorSlot", "MegakernelPlan",
+           "lower_tgraph", "stamp_multichip"]
 
 #: graph inputs that change every decode step — everything else in the heap
 #: (weights, caches) is uploaded once and lives on the device
@@ -61,6 +70,17 @@ DESC_WORDS = 36
 #: demand-loaded, [5]-[7] event waits / violations / signals, [8]-[11]
 #: dynamic-scheduler pops (zero under the static scheduler)
 STATS_WORDS = 12
+
+#: float32 words PER GRID SLOT in the optional trace ring: [0] worker,
+#: [1] descriptor row, [2] kind code, [3] start tick, [4] end tick,
+#: [5] pop source (-1 under the static scheduler), [6] the wait's trigger
+#: count (0 when the slot waits on nothing), [7] 0
+TRACE_WORDS = 8
+
+#: words at the head of the trace ring, before the records: word 0 is the
+#: global tick counter the kernel fetch-and-increments, the rest pads the
+#: records to ``TRACE_WORDS`` alignment
+TRACE_HEADER = 8
 
 KIND_CODES = {
     "noop": 0,
@@ -132,6 +152,8 @@ class MegakernelPlan:
     num_steps: int = 0
     event_offset: int = 0
     num_events: int = 0
+    trace: bool = False               # the trace ring is in the heap
+    ring_offset: int = 0              # heap offset of the ring (0: off)
 
     def pipeline_stats(self) -> Dict[str, Any]:
         """Scheduler stalls plus the prefetch plan's coverage over the
@@ -281,6 +303,41 @@ def _plan_prefetch(compiled: CompiledTGraph, layout: Dict[str, TensorSlot],
             assert (grid[row - W, 24:27] == grid[row, 28:31]).all(), row
 
 
+def _emit_events(compiled: CompiledTGraph, grid: np.ndarray, W: int
+                 ) -> int:
+    """Emit the wait/signal words (32-34) and return the number of
+    in-heap event counters, as the reference does.
+
+    Only events with at least one cross-worker consumer get a counter: a
+    task waits on its (single, normalized) dependent event iff some
+    producer runs on another worker; same-worker producers are ordered by
+    the worker's own stream.  Every in-task of a waited event signals it,
+    so the counter reaches exactly the trigger count (``len(in_tasks)``)
+    once every producer ran."""
+    tg = compiled.tg
+    part = compiled.partition
+    waited: set = set()
+    for tid, task in tg.tasks.items():
+        for eid in task.dependent_events:       # normalized: at most one
+            e = tg.events[eid]
+            if any(part.worker_of[p] != part.worker_of[tid]
+                   for p in e.in_tasks):
+                waited.add(eid)
+    eidx = {eid: i for i, eid in enumerate(sorted(waited))}
+    for tid, task in tg.tasks.items():
+        row = part.step_of[tid] * W + part.worker_of[tid]
+        for eid in task.dependent_events:
+            e = tg.events[eid]
+            if eid in waited and any(part.worker_of[p] != part.worker_of[tid]
+                                     for p in e.in_tasks):
+                grid[row, 32] = eidx[eid]
+                grid[row, 33] = len(e.in_tasks)
+        for eid in task.triggering_events:      # normalized: at most one
+            if eid in waited:
+                grid[row, 34] = eidx[eid]
+    return len(eidx)
+
+
 #: outputs that alias an input region (in-place state update)
 _ALIAS_OPS = {
     OpKind.CACHE_UPDATE: {0: 0},      # out0 aliases ins[0] (the cache)
@@ -322,12 +379,11 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
                  tn: Optional[int] = None,
                  scheduler: str = "static",
                  trace: bool = False) -> MegakernelPlan:
-    """Lower a compiled decode graph to the static W-worker plan."""
+    """Lower a compiled decode graph to the static W-worker plan; with
+    ``trace`` the heap ends in the trace ring."""
     if scheduler != "static":
         raise NotImplementedError(
             f"scheduler={scheduler!r}: only the static scheduler is ported")
-    if trace:
-        raise NotImplementedError("the task trace ring is not ported yet")
     g = compiled.graph
     tg = compiled.tg
 
@@ -488,19 +544,24 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
     grid[:, 34] = -1
     for pos, tid in enumerate(compiled.order):
         grid[part.step_of[tid] * W + part.worker_of[tid]] = descs[pos]
-    if W != 1:
-        raise NotImplementedError(
-            "W > 1 workers (in-heap event counters) are not ported yet")
 
+    num_events = _emit_events(compiled, grid, W)
     _plan_prefetch(compiled, layout, grid, num_steps, W)
-    event_offset = heap_size            # no events at W = 1
+    event_offset = heap_size
+    heap_size += num_events
     stats_offset = heap_size
     heap_size += STATS_WORDS * W
     statics.update({"W": W, "NUM_STEPS": num_steps,
-                    "EVENT_OFF": event_offset, "N_EVENTS": 0,
+                    "EVENT_OFF": event_offset, "N_EVENTS": num_events,
                     "STATS_OFF": stats_offset})
+    ring_offset = 0
+    if trace:
+        ring_offset = heap_size
+        heap_size += TRACE_HEADER + num_steps * W * TRACE_WORDS
+        statics.update({"TRACE": 1, "TR_OFF": ring_offset})
     return MegakernelPlan(compiled, grid, layout, heap_size, statics,
-                          stats_offset, W, num_steps, event_offset, 0)
+                          stats_offset, W, num_steps, event_offset,
+                          num_events, trace, ring_offset)
 
 
 def stamp_multichip(plan: MegakernelPlan, n_chips: int) -> MegakernelPlan:

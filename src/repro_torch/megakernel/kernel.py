@@ -2,19 +2,25 @@
 PyTorch version.
 
 ``megakernel(heap, descs, statics)`` runs one decode step: every row of
-the descriptor table, in order, against the float32 heap, in place.  For
-a heap on the card it launches the hand-written CUDA kernel
-(``csrc/megakernel.cu``, built by ``build.py``) and adds one to the
-launch count; for a heap on the CPU it runs ``megakernel_plain``, and on
-any other device it raises.  It replaces the Pallas megakernel of the
-JAX package (``repro/kernels/megakernel/kernel.py`` ``make_megakernel``)
-for the static scheduler at W = 1 and the dense task kinds.
+the ``(num_steps * W, 36)`` descriptor grid against the float32 heap, in
+place.  For a heap on the card it launches the hand-written CUDA kernel
+(``csrc/megakernel.cu``, built by ``build.py``), one CTA per worker, and
+adds one to the launch count; for a heap on the CPU it runs
+``megakernel_plain``, and on any other device it raises.  It replaces
+the Pallas megakernel of the JAX package
+(``repro/kernels/megakernel/kernel.py`` ``make_megakernel``) for the
+static W-worker scheduler and the dense task kinds, with its event
+counters and trace ring.
 
-``megakernel_plain`` is a Python loop over the same descriptor rows that
-runs each kind with torch ops on views of the heap.  It computes what
-the kernel computes (same tiles, same masked store widths, same counters)
-on any device: the CPU tests run it, and ``chip_smoke.py`` holds the
-kernel against it on the card.  Nothing on the main path calls it.
+``megakernel_plain`` is a Python loop over the same descriptor rows, in
+grid order ``s * W + w``, that runs each kind with torch ops on views of
+the heap.  The partition makes that order legal: every dependency
+crosses a step.  It computes what the kernel computes (same tiles, same
+masked store widths, same counters, the same trace records) on any
+device, and handles the event words as the reference's interpret mode
+does: a waited counter must already equal its trigger count, or the wait
+counts a violation.  The CPU tests run it, and ``chip_smoke.py`` holds
+the kernel against it on the card.  Nothing on the main path calls it.
 """
 from __future__ import annotations
 
@@ -24,10 +30,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .desc import DESC_WORDS, STATS_WORDS
+from .desc import DESC_WORDS, STATS_WORDS, TRACE_HEADER, TRACE_WORDS
 
 __all__ = ["megakernel", "megakernel_plain", "launch_count",
-           "reset_launch_count", "check_plan", "MAX_TN", "MAX_HD", "MAX_TK"]
+           "reset_launch_count", "check_plan", "check_workers",
+           "max_workers", "MAX_TN", "MAX_HD", "MAX_TK", "SPIN_TIMEOUT_S"]
 
 #: limits of the CUDA kernel's tiling: 512 threads × 2 float4 column
 #: groups per matmul thread, 8 head elements per lane in attention, and
@@ -36,6 +43,11 @@ __all__ = ["megakernel", "megakernel_plain", "launch_count",
 MAX_TN = 4096
 MAX_HD = 256
 MAX_TK = 26880
+
+#: deadline of one event wait on the card: a wait longer than this is a
+#: fault (the kernel traps, the next synchronisation raises).  A whole
+#: decode step at W = 1 takes under 0.4 s on an H100.
+SPIN_TIMEOUT_S = 5.0
 
 _ROW_SPILL = 1 << 20
 _LAUNCHES = 0
@@ -67,12 +79,38 @@ def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
         raise NotImplementedError("matmul weights must be float4-aligned")
 
 
+def max_workers(statics: Mapping[str, Any], device=None) -> int:
+    """The most CTAs of the kernel that can be resident at once on the
+    card for a plan with these statics (its shared memory per CTA)."""
+    from .build import load_library
+    lib = load_library()
+    with torch.cuda.device(device):
+        n = lib.mk_max_workers(statics["TK"], statics["HD"])
+    if n < 0:
+        raise RuntimeError("megakernel occupancy query failed: "
+                           + lib.mk_error_string(-n).decode())
+    return n
+
+
+def check_workers(statics: Mapping[str, Any], device=None) -> None:
+    """Raise unless all W workers of the plan fit on the card at once: a
+    worker whose CTA is not resident would leave the workers that wait on
+    it spinning.  W is never shrunk."""
+    n = max_workers(statics, device)
+    if statics["W"] > n:
+        raise RuntimeError(
+            f"W={statics['W']} workers cannot be resident at once on "
+            f"{torch.cuda.get_device_name(device)}: at most {n} CTAs fit")
+
+
 def megakernel(heap: torch.Tensor, descs: torch.Tensor,
                statics: Mapping[str, Any]) -> None:
     """One decode step: run the descriptor table ``descs`` ((steps · W,
     36) int64, on the heap's device) against ``heap`` (flat float32) in
-    place.  A table for the card must pass ``check_plan`` (the executor
-    checks it once, at construction)."""
+    place.  The event counters and the tick must be zero (the executor
+    zeroes them with the step's inputs).  A table for the card must pass
+    ``check_plan``; a W that cannot be resident at once is refused before
+    anything runs."""
     global _LAUNCHES
     if heap.dtype != torch.float32 or heap.dim() != 1 \
             or not heap.is_contiguous():
@@ -97,6 +135,9 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
                             descs.shape[0] // W, W, statics["TN"],
                             statics["TK"], statics["HD"], statics["G"],
                             statics["STORE_CH"], statics["STATS_OFF"],
+                            statics["EVENT_OFF"],
+                            statics["TR_OFF"] if statics.get("TRACE")
+                            else -1, int(SPIN_TIMEOUT_S * 1e9),
                             float(statics["THETA"]), stream)
     if err != 0:
         raise RuntimeError("megakernel launch failed: "
@@ -123,15 +164,20 @@ def _act(y: torch.Tensor, act_id: int) -> torch.Tensor:
 
 def megakernel_plain(heap: torch.Tensor, descs,
                      statics: Mapping[str, Any]) -> None:
-    """The kernel's function with torch ops, one descriptor row at a time.
+    """The kernel's function with torch ops, one descriptor row at a time
+    in grid order (row ``s * W + w``).
 
     Every store writes the kernel's masked width: the valid columns
     rounded up to ``STORE_CH`` chunks, capped at ``TN`` (the tail chunk
-    overhangs only into the row slot's zero padding).  The per-worker
-    counter block gets the same counts the kernel writes."""
+    overhangs only into the row slot's zero padding).  Each slot, noops
+    included, checks its wait (the counter must already be at its
+    trigger count), runs its task, signals its event and, with the trace
+    ring on, records its two ticks.  The per-worker counter blocks get
+    the same counts the kernel writes."""
     rows_list = (descs.tolist() if isinstance(descs, torch.Tensor)
                  else np.asarray(descs).tolist())
     TN, HD, G = statics["TN"], statics["HD"], statics["G"]
+    W = statics["W"]
     chw = min(statics["STORE_CH"], TN)
     theta = float(statics["THETA"])
     half = HD // 2
@@ -147,89 +193,125 @@ def megakernel_plain(heap: torch.Tensor, descs,
     def scalar(off):
         return int(heap[off].item())
 
-    bulk = rows = fallbacks = 0
-    for d in rows_list:
-        code, m = d[0], d[1]
-        if code == 0:
-            continue
-        if d[30] > 0:                   # primary tile, demand-loaded
-            bulk, rows, fallbacks = bulk + 1, rows + d[30], fallbacks + 1
-        per_row_store = code in (7, 8)
-        bulk += m if per_row_store else 1
-        rows += m
-        if code == 1:                   # matmul + bias + activation
-            n, k = d[2], d[3]
-            ws = width(n)
-            y = tile(d[6], d[7], m, k) @ tile(d[8], d[9], k, ws)
-            if d[10] >= 0:
-                y = y + heap[d[10]:d[10] + ws]
-            tile(d[4], d[5], m, ws).copy_(_act(y, d[14]))
-        elif code == 2:                 # rmsnorm
-            n = d[2]
-            ws = width(n)
-            x = tile(d[6], d[7], m, n)
-            inv = torch.rsqrt(torch.sum(x * x, dim=1, keepdim=True) / n
-                              + _f32(d[17]))
-            w = heap[d[10]:d[10] + n]
-            wg = 1.0 + w if d[14] == 1 else w
-            out = tile(d[4], d[5], m, ws)
-            out[:, :n] = x * inv * wg
-            out[:, n:] = 0.0
-        elif code == 3:                 # rope (rotate-half, per head)
-            ws = width(d[2])
-            nh = TN // HD
-            pos = tile(d[19], d[20], m, 1)
-            ang = pos * inv_freq[None, :]
-            c, s = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
-            x = tile(d[6], d[7], m, nh * HD).reshape(m, nh, HD)
-            x1, x2 = x[..., :half], x[..., half:]
-            rot = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
-            out = torch.zeros((m, TN), dtype=heap.dtype, device=heap.device)
-            out[:, :nh * HD] = rot.reshape(m, nh * HD)
-            tile(d[4], d[5], m, ws).copy_(out[:, :ws])
-        elif code == 4:                 # glu: act(a) * b
-            ws = width(d[2])
-            tile(d[4], d[5], m, ws).copy_(
-                _act(tile(d[6], d[7], m, ws), d[14]) * tile(d[8], d[9], m, ws))
-        elif code == 5:                 # residual / scale-add
-            ws = width(d[2])
-            y = tile(d[6], d[7], m, ws) * _f32(d[17])
-            if d[8] >= 0:
-                y = y + tile(d[8], d[9], m, ws)
-            tile(d[4], d[5], m, ws).copy_(y)
-        elif code == 6:                 # GQA decode attention
-            ws = width(d[2])
-            scale = _f32(d[17])
-            out = torch.zeros((m, ws), dtype=heap.dtype, device=heap.device)
-            for r in range(m):
-                live = min(scalar(d[12] + r), d[3])
-                if live <= 0:
-                    continue
-                for gi in range(d[16]):
-                    q = tile(d[6] + r * d[7] + gi * G * HD, HD, G, HD) * scale
-                    kk = tile(d[8] + r * d[15] + gi * HD, d[9], live, HD)
-                    vv = tile(d[10] + r * d[15] + gi * HD, d[11], live, HD)
-                    p = torch.softmax(q @ kk.T, dim=-1)
-                    out[r, gi * G * HD:(gi + 1) * G * HD] = \
-                        (p @ vv).reshape(G * HD)
-            tile(d[4], d[5], m, ws).copy_(out)
-        elif code == 7:                 # KV cache row write at seq_lens[r]
-            ws = width(d[2])
-            for r in range(m):
-                dst = d[4] + r * d[15] + scalar(d[12] + r) * d[5]
-                heap[dst:dst + ws] = heap[d[6] + r * d[7]:
-                                          d[6] + r * d[7] + ws]
-        elif code == 8:                 # embedding rows by token id
-            ws = width(d[2])
-            for r in range(m):
-                src = d[8] + scalar(d[6] + r) * d[9]
-                heap[d[4] + r * d[5]:d[4] + r * d[5] + ws] = \
-                    heap[src:src + ws]
-        else:
-            raise NotImplementedError(f"megakernel task kind {code}")
+    # the counters the kernel counts up in the heap, kept here and
+    # written back once: only this loop touches them while it runs
+    ev_off, n_ev = statics["EVENT_OFF"], statics["N_EVENTS"]
+    events = heap[ev_off:ev_off + n_ev].tolist()
+    trace = bool(statics.get("TRACE"))
+    tr_off = statics.get("TR_OFF", 0)
+    tick = int(heap[tr_off].item()) if trace else 0
+    ring = np.zeros((len(rows_list), TRACE_WORDS), np.float32)
+    counts = np.zeros((W, STATS_WORDS), np.int64)
 
-    stats = torch.zeros((STATS_WORDS,), dtype=heap.dtype)
-    stats[0], stats[1], stats[3] = bulk, rows % _ROW_SPILL, fallbacks
-    stats[4] = rows // _ROW_SPILL
+    for i, d in enumerate(rows_list):
+        w = i % W
+        cnt = counts[w]
+        if d[32] >= 0:                  # wait: must already hold
+            cnt[5] += 1
+            cnt[6] += events[d[32]] != d[33]
+        t_start = tick
+        tick += 1
+        if d[0] != 0:
+            if d[30] > 0:               # primary tile, demand-loaded
+                cnt[0] += 1
+                cnt[1] += d[30]
+                cnt[3] += 1
+            cnt[0] += d[1] if d[0] in (7, 8) else 1
+            cnt[1] += d[1]
+            _run_task(d, tile, width, scalar, heap, TN, HD, G, half,
+                      inv_freq)
+        ring[i] = (w, i, d[0], t_start, tick, -1,
+                   d[33] if d[32] >= 0 else 0, 0)
+        tick += 1
+        if d[34] >= 0:                  # signal
+            events[d[34]] += 1
+            cnt[7] += 1
+
+    stats = np.zeros((W, STATS_WORDS), np.float32)
+    stats[:, [0, 3, 5, 6, 7]] = counts[:, [0, 3, 5, 6, 7]]
+    stats[:, 1] = counts[:, 1] % _ROW_SPILL
+    stats[:, 4] = counts[:, 1] // _ROW_SPILL
     off = statics["STATS_OFF"]
-    heap[off:off + STATS_WORDS] = stats.to(heap.device)
+    heap[off:off + W * STATS_WORDS] = \
+        torch.from_numpy(stats.ravel()).to(heap.device)
+    if n_ev:
+        heap[ev_off:ev_off + n_ev] = torch.tensor(
+            events, dtype=heap.dtype, device=heap.device)
+    if trace:
+        heap[tr_off] = float(tick)
+        base = tr_off + TRACE_HEADER
+        heap[base:base + ring.size] = \
+            torch.from_numpy(ring.ravel()).to(heap.device)
+
+
+def _run_task(d, tile, width, scalar, heap, TN, HD, G, half, inv_freq):
+    """One task of kind ``d[0]`` (1-8) on the heap, in place."""
+    code, m = d[0], d[1]
+    if code == 1:                       # matmul + bias + activation
+        n, k = d[2], d[3]
+        ws = width(n)
+        y = tile(d[6], d[7], m, k) @ tile(d[8], d[9], k, ws)
+        if d[10] >= 0:
+            y = y + heap[d[10]:d[10] + ws]
+        tile(d[4], d[5], m, ws).copy_(_act(y, d[14]))
+    elif code == 2:                     # rmsnorm
+        n = d[2]
+        ws = width(n)
+        x = tile(d[6], d[7], m, n)
+        inv = torch.rsqrt(torch.sum(x * x, dim=1, keepdim=True) / n
+                          + _f32(d[17]))
+        w = heap[d[10]:d[10] + n]
+        wg = 1.0 + w if d[14] == 1 else w
+        out = tile(d[4], d[5], m, ws)
+        out[:, :n] = x * inv * wg
+        out[:, n:] = 0.0
+    elif code == 3:                     # rope (rotate-half, per head)
+        ws = width(d[2])
+        nh = TN // HD
+        pos = tile(d[19], d[20], m, 1)
+        ang = pos * inv_freq[None, :]
+        c, s = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+        x = tile(d[6], d[7], m, nh * HD).reshape(m, nh, HD)
+        x1, x2 = x[..., :half], x[..., half:]
+        rot = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+        out = torch.zeros((m, TN), dtype=heap.dtype, device=heap.device)
+        out[:, :nh * HD] = rot.reshape(m, nh * HD)
+        tile(d[4], d[5], m, ws).copy_(out[:, :ws])
+    elif code == 4:                     # glu: act(a) * b
+        ws = width(d[2])
+        tile(d[4], d[5], m, ws).copy_(
+            _act(tile(d[6], d[7], m, ws), d[14]) * tile(d[8], d[9], m, ws))
+    elif code == 5:                     # residual / scale-add
+        ws = width(d[2])
+        y = tile(d[6], d[7], m, ws) * _f32(d[17])
+        if d[8] >= 0:
+            y = y + tile(d[8], d[9], m, ws)
+        tile(d[4], d[5], m, ws).copy_(y)
+    elif code == 6:                     # GQA decode attention
+        ws = width(d[2])
+        scale = _f32(d[17])
+        out = torch.zeros((m, ws), dtype=heap.dtype, device=heap.device)
+        for r in range(m):
+            live = min(scalar(d[12] + r), d[3])
+            if live <= 0:
+                continue
+            for gi in range(d[16]):
+                q = tile(d[6] + r * d[7] + gi * G * HD, HD, G, HD) * scale
+                kk = tile(d[8] + r * d[15] + gi * HD, d[9], live, HD)
+                vv = tile(d[10] + r * d[15] + gi * HD, d[11], live, HD)
+                p = torch.softmax(q @ kk.T, dim=-1)
+                out[r, gi * G * HD:(gi + 1) * G * HD] = \
+                    (p @ vv).reshape(G * HD)
+        tile(d[4], d[5], m, ws).copy_(out)
+    elif code == 7:                     # KV cache row write at seq_lens[r]
+        ws = width(d[2])
+        for r in range(m):
+            dst = d[4] + r * d[15] + scalar(d[12] + r) * d[5]
+            heap[dst:dst + ws] = heap[d[6] + r * d[7]:d[6] + r * d[7] + ws]
+    elif code == 8:                     # embedding rows by token id
+        ws = width(d[2])
+        for r in range(m):
+            src = d[8] + scalar(d[6] + r) * d[9]
+            heap[d[4] + r * d[5]:d[4] + r * d[5] + ws] = heap[src:src + ws]
+    else:
+        raise NotImplementedError(f"megakernel task kind {code}")

@@ -11,9 +11,11 @@ live program, as the reference's executor does:
 * the KV cache stays in the heap across steps (the kernel updates it in
   place);
 * the per-step inputs (tokens, positions, seq_lens, live_lens) go into
-  the heap through one ``index_copy_`` before each launch.
-
-W > 1 workers (the event slice) raise ``NotImplementedError``.
+  the heap through one ``index_copy_`` before each launch.  The same copy
+  writes zeros over the event table and the trace ring's tick counter:
+  the kernel counts both up during a launch, and a launch that found its
+  counters at their trigger counts would let every wait pass before its
+  producers ran.
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ from ..core.decompose import DecomposeConfig
 from ..core.lowering import build_decode_graph
 from ..device import resolve_device
 from ..models.lm import fill_params
-from .desc import STATS_WORDS, MegakernelPlan, lower_tgraph
-from .kernel import check_plan, megakernel
+from .desc import (STATS_WORDS, TRACE_HEADER, TRACE_WORDS, MegakernelPlan,
+                   lower_tgraph)
+from .kernel import check_plan, check_workers, megakernel
 
 __all__ = ["compile_decode_megakernel", "MegakernelExecutor",
            "STATS_FIELDS", "decode_stats_row", "read_stats_block"]
@@ -71,16 +74,17 @@ def read_stats_block(heap: torch.Tensor, stats_offset: int,
 
 
 def compile_decode_megakernel(cfg, batch: int, max_seq: int,
-                              *, num_workers: int = 1) -> MegakernelPlan:
+                              *, num_workers: int = 1,
+                              trace: bool = False) -> MegakernelPlan:
     """Lower cfg's decode step: op graph → tGraph → descriptors, with the
     reference's default compile options (tile rows capped at 8, the
-    megakernel's TM)."""
-    if num_workers != 1:
-        raise NotImplementedError(
-            "num_workers > 1 (in-heap event counters) is not ported yet")
+    megakernel's TM).  ``num_workers`` is the W the partitioner may use
+    (it picks the width with the least estimated makespan, at most W);
+    ``trace`` adds the trace ring to the heap."""
     g = build_decode_graph(cfg, batch, max_seq)
-    opts = CompileOptions(decompose=DecomposeConfig(max_rows=8))
-    return lower_tgraph(megakernelize(g, opts), cfg)
+    opts = CompileOptions(decompose=DecomposeConfig(max_rows=8),
+                          num_workers=num_workers, trace=trace)
+    return lower_tgraph(megakernelize(g, opts), cfg, trace=trace)
 
 
 class MegakernelExecutor:
@@ -100,6 +104,7 @@ class MegakernelExecutor:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             check_plan(plan.statics, plan.descs)
+            check_workers(plan.statics, self.device)
         self.upload_count = 0
         self.state_scatter_count = 0
         classes = plan.input_classes()
@@ -116,6 +121,12 @@ class MegakernelExecutor:
                     + np.arange(cols)[None, :])
             self._entries.append((name, slot.rows * cols))
             idx.append(grid.ravel())
+        # counters the kernel counts up, zeroed before every launch
+        self._n_zero = plan.num_events + (1 if plan.trace else 0)
+        idx.append(np.arange(plan.event_offset,
+                             plan.event_offset + plan.num_events))
+        if plan.trace:
+            idx.append(np.array([plan.ring_offset]))
         self._upd_idx = torch.from_numpy(
             np.concatenate(idx).astype(np.int64)).to(self.device)
         self._descs = torch.from_numpy(plan.descs).to(self.device)
@@ -174,19 +185,21 @@ class MegakernelExecutor:
     # ---------------------------------------------------------------- steps
     def write_step_inputs(self, tokens, seq_lens, positions=None) -> None:
         """Write one step's tokens, positions and lengths into the heap
-        (one ``index_copy_``)."""
+        and zero the event counters and the tick (one ``index_copy_``)."""
         lens = np.asarray(seq_lens, np.int64)
         vals = {"tokens": np.asarray(tokens), "seq_lens": lens,
                 "live_lens": lens + 1,
                 "positions": lens if positions is None
                 else np.asarray(positions)}
         flat = np.concatenate([np.asarray(vals[n], np.float32).reshape(size)
-                               for n, size in self._entries])
+                               for n, size in self._entries]
+                              + [np.zeros((self._n_zero,), np.float32)])
         self.heap.index_copy_(0, self._upd_idx,
                               torch.from_numpy(flat).to(self.device))
 
     def launch(self) -> None:
-        """One kernel launch over the whole descriptor table."""
+        """One kernel launch over the whole descriptor table; it follows
+        ``write_step_inputs``, which zeroes the counters it counts up."""
         megakernel(self.heap, self._descs, self.plan.statics)
 
     def step(self, tokens, seq_lens, positions=None) -> torch.Tensor:
@@ -209,7 +222,10 @@ class MegakernelExecutor:
 
     # ------------------------------------------------------------ counters
     def worker_counters(self) -> List[Dict[str, int]]:
-        """The kernel's per-worker counters of the LAST step."""
+        """The kernel's counters of the LAST step, one dict per worker:
+        tile transfers and their rows, primary tiles demand-loaded, event
+        waits, wait violations (zero unless the lowering is wrong) and
+        event signals."""
         assert self.heap is not None, "bind() first"
         return read_stats_block(self.heap, self.plan.stats_offset,
                                 self.plan.num_workers)
@@ -218,3 +234,14 @@ class MegakernelExecutor:
         """The kernel's counters of the LAST step, summed over workers."""
         per_worker = self.worker_counters()
         return {k: sum(d[k] for d in per_worker) for k in STATS_FIELDS}
+
+    def task_ring(self) -> np.ndarray:
+        """The trace ring of the LAST step: ``(num_steps * W,
+        TRACE_WORDS)`` float32 records in grid-slot order (``obs``
+        decodes them)."""
+        assert self.plan.trace, "plan compiled without trace=True"
+        assert self.heap is not None, "bind() first"
+        off = self.plan.ring_offset + TRACE_HEADER
+        n = self.plan.num_steps * self.plan.num_workers
+        return self.heap[off:off + n * TRACE_WORDS].cpu().numpy() \
+            .reshape(n, TRACE_WORDS)

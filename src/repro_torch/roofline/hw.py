@@ -1,15 +1,13 @@
-"""Hardware model used for the roofline terms (TPU v5e-class chip).
+"""The reference's hardware cost model (a TPU v5e-class chip).
 
-This module is the single source of the hardware constants: the roofline
-analysis, the latency-aware scheduler / worker partitioner
-(``core/schedule.py``) and the runtime simulator (``core/runtime_sim.py``)
-all derive their peak-FLOPs / HBM-bandwidth terms from :data:`TPU_V5E`
-so the three can never drift apart.
-
-In the PyTorch port these constants only weigh tasks against each other
-in the compiler's cost model, so that the port's schedule and descriptor
-table stay identical to the reference's; they describe no time on the
-GPU.
+These constants are the JAX package's roofline model, copied so that the
+port's compiler prices tasks exactly as the reference does: the
+latency-aware scheduler and the worker partitioner
+(``core/schedule.py``) weigh tasks with :data:`TPU_V5E`, and so the
+port's linearized order, worker partition and descriptor table equal the
+reference's.  They are not the H100's figures and predict no time on
+the card; the card's own rates (3.35 TB/s, 67 TFLOP/s in float32) are
+in ``chip_smoke.py`` and ``PERF.md``.
 """
 from __future__ import annotations
 

@@ -6,6 +6,10 @@ CUDA device; the file imports no JAX, so it runs where JAX is absent:
     pytest -m gpu tests/test_torch_*.py
 """
 import dataclasses
+import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -17,9 +21,13 @@ from repro_torch.core.graph import OpKind
 from repro_torch.megakernel import (MegakernelExecutor,
                                     compile_decode_megakernel, launch_count,
                                     megakernel_plain, reset_launch_count)
+from repro_torch.megakernel.kernel import (SPIN_TIMEOUT_S, check_workers,
+                                           max_workers, megakernel)
 from repro_torch.megakernel.ops import read_stats_block
+from repro_torch.obs import check_event_order, decode_ring
 
 B, S = 2, 16
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 
 
 @pytest.fixture
@@ -106,3 +114,124 @@ def test_cuda_program_matches_torch_program(cuda):
                                    rtol=3e-4, atol=3e-4, err_msg=f"step {i}")
         lens += 1
     assert launch_count() == 8
+
+
+def _step_at(plan, cfg, base, cuda):
+    """One launch of ``plan`` on a clone of the heap image ``base``."""
+    ex = MegakernelExecutor(plan, cfg, cuda)
+    ex.upload(base.clone())
+    ex.write_step_inputs(np.array([3, 7]), np.array([1, 12]))
+    plain = ex.heap.clone()
+    ex.launch()
+    torch.cuda.synchronize()
+    return ex, plain
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_bitwise_across_workers(cuda):
+    """W ∈ {1, 2, 4} CTAs from one heap image: logits and every cache
+    bitwise equal across W, each W within 2e-4 of its plain version, the
+    table's waits and signals counted with no violation, and the traced
+    W = 4 run's ring in a clean event order with a permutation of ticks
+    and the heap outside the ring unchanged."""
+    cfg = _cfg(2)
+    plans = {w: compile_decode_megakernel(cfg, B, S, num_workers=w)
+             for w in (1, 2, 4)}
+    traced = compile_decode_megakernel(cfg, B, S, num_workers=4, trace=True)
+    assert [p.num_workers for p in plans.values()] == [1, 2, 4]
+    ex = MegakernelExecutor(traced, cfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ex.init_weights(gen)
+    for name in traced.input_classes()["state"]:
+        traced.view(ex.heap, name).normal_(0.0, 1.0, generator=gen)
+    base = ex.heap
+    outs = {}
+    for w, plan in plans.items():
+        run, plain = _step_at(plan, cfg, base, cuda)
+        megakernel_plain(plain, plan.descs, plan.statics)
+        torch.testing.assert_close(plan.view(run.heap, "logits"),
+                                   plan.view(plain, "logits"), rtol=2e-4,
+                                   atol=2e-4)
+        outs[w] = {n: plan.view(run.heap, n).clone() for n in
+                   ["logits"] + plan.input_classes()["state"]}
+        counters = run.worker_counters()
+        rows = np.arange(plan.descs.shape[0]) % w
+        for i, c in enumerate(counters):
+            assert c["event_wait_violations"] == 0
+            assert c["event_waits"] == int((plan.descs[rows == i, 32]
+                                            >= 0).sum())
+            assert c["event_signals"] == int((plan.descs[rows == i, 34]
+                                              >= 0).sum())
+        assert counters == read_stats_block(plain, plan.stats_offset, w)
+        if w == 4:
+            untraced = run.heap
+    for w in (2, 4):
+        for n, v in outs[1].items():
+            assert torch.equal(outs[w][n], v), (w, n)
+    run, _ = _step_at(traced, cfg, base, cuda)
+    lo = traced.ring_offset
+    assert torch.equal(run.heap[:lo], untraced[:lo])
+    ring = run.task_ring()
+    ticks = np.sort(np.concatenate([ring[:, 3], ring[:, 4]]))
+    assert np.array_equal(ticks, np.arange(2 * ring.shape[0]))
+    tl = decode_ring(traced, ring)
+    assert any(e.wait_ev >= 0 for e in tl.events)
+    assert check_event_order(tl) == []
+
+
+@pytest.mark.gpu
+def test_workers_that_cannot_be_resident_raise(cuda):
+    """A W larger than the CTAs the card can hold at once is refused
+    before anything runs: by the executor's check and by the launch."""
+    cfg = _cfg(1)
+    plan = compile_decode_megakernel(cfg, B, S)
+    n = max_workers(plan.statics, cuda)
+    assert n >= torch.cuda.get_device_properties(0).multi_processor_count
+    statics = dict(plan.statics, W=n + 1)
+    with pytest.raises(RuntimeError, match="resident"):
+        check_workers(statics, cuda)
+    heap = torch.zeros(plan.heap_size + 16 * (n + 1), device=cuda)
+    descs = torch.zeros(((n + 1), 36), dtype=torch.int64, device=cuda)
+    descs[:, 32] = -1
+    descs[:, 34] = -1
+    reset_launch_count()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        megakernel(heap, descs, statics)
+    assert launch_count() == 0
+    torch.cuda.synchronize()
+
+
+_STUCK = r"""
+import torch
+from repro_torch.megakernel.kernel import megakernel
+statics = {"W": 1, "TN": 128, "TK": 128, "HD": 128, "G": 1,
+           "STORE_CH": 128, "THETA": 1e4, "EVENT_OFF": 0, "N_EVENTS": 1,
+           "STATS_OFF": 8}
+heap = torch.zeros(64, device="cuda")
+descs = torch.zeros((1, 36), dtype=torch.int64)
+descs[:, 32] = -1
+descs[:, 34] = -1
+megakernel(heap, descs.cuda(), statics)         # a row that waits on nothing
+torch.cuda.synchronize()
+print("clean launch ok", flush=True)
+descs[0, 32], descs[0, 33] = 0, 1               # waits on an unsignalled event
+megakernel(heap, descs.cuda(), statics)
+torch.cuda.synchronize()
+print("no fault", flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_wait_past_its_deadline_fails_the_run(cuda):
+    """A wait on an event that nobody signals traps at its deadline: the
+    process's next synchronisation raises instead of hanging."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _STUCK], env=env,
+                          capture_output=True, text=True,
+                          timeout=SPIN_TIMEOUT_S + 120)
+    took = time.perf_counter() - t0
+    assert proc.returncode != 0, proc.stdout
+    assert "clean launch ok" in proc.stdout and "no fault" not in proc.stdout
+    assert "CUDA" in proc.stderr, proc.stderr[-2000:]
+    assert took >= SPIN_TIMEOUT_S

@@ -47,6 +47,8 @@ def test_compile_without_device_needs_a_card():
 
 
 def test_later_slices_raise():
+    """The MoE family is a later slice and raises; W > 1 workers are
+    ported and compile to a W-worker plan with event counters."""
     from repro_torch.api import compile
     from repro_torch.configs import get_config
     moe = get_config("granite-moe-1b-a400m").reduced()
@@ -54,14 +56,15 @@ def test_later_slices_raise():
         compile(moe, 1, 8, device="cpu")
     dense = dataclasses.replace(get_config("deepseek-7b").reduced(),
                                 n_layers=1)
-    with pytest.raises(NotImplementedError):
-        compile(dense, 1, 8, backend="megakernel", device="cpu",
-                num_workers=2)
+    prog = compile(dense, 1, 8, backend="megakernel", device="cpu",
+                   num_workers=2)
+    assert prog.plan.num_workers == 2 and prog.plan.num_events > 0
 
 
 def test_later_lowerings_raise():
-    """The dynamic scheduler, the trace ring and the multichip stamp are
-    later slices: asking for them raises."""
+    """The dynamic scheduler and the multichip stamp are later slices:
+    asking for them raises.  The trace ring is ported: it is appended to
+    the heap."""
     from repro_torch.configs import get_config
     from repro_torch.core.compile import CompileOptions, megakernelize
     from repro_torch.core.lowering import build_decode_graph
@@ -71,7 +74,8 @@ def test_later_lowerings_raise():
     compiled = megakernelize(build_decode_graph(cfg, 1, 8), CompileOptions())
     with pytest.raises(NotImplementedError):
         lower_tgraph(compiled, cfg, scheduler="dynamic")
-    with pytest.raises(NotImplementedError):
+    plain, traced = lower_tgraph(compiled, cfg), \
         lower_tgraph(compiled, cfg, trace=True)
+    assert traced.trace and traced.ring_offset == plain.heap_size
     with pytest.raises(NotImplementedError):
         stamp_multichip(lower_tgraph(compiled, cfg), 2)
