@@ -11,29 +11,42 @@ for that many workers, and the partitioner picks the width it uses.
 1. prints the card's name and power limit, then builds the CUDA
    megakernel from ``src/repro_torch/megakernel/csrc`` for sm_90a; a W
    larger than the CTAs the card holds at once is refused before launch,
-   and a wait on an event nobody signals fails its process at the
-   deadline (a child process, since the fault ends its CUDA context);
+   and a wait on an event nobody signals, and a dynamic plan whose one
+   event never triggers, each fail their process at the deadline (child
+   processes, since the fault ends their CUDA context);
 2. full-width deepseek-7b cut to 2 layers (B=2, S=128), one heap image:
-   one decode step at W ∈ {1, 2, 4, W_max} — logits and KV caches
-   bitwise equal across W, each W within 2e-4 of the plain PyTorch
-   version with the embedding and the cache-update copies bitwise, no
-   event-wait violation and the waits and signals the table implies on
-   every worker.  Then the same step traced at W_max: the heap outside
-   the ring bitwise equal to the untraced run, the ticks a permutation,
-   the event order clean, the Perfetto export valid;
+   one decode step at W ∈ {1, 2, 4, W_max} under the static scheduler —
+   logits and KV caches bitwise equal across W, each W within 2e-4 of the
+   plain PyTorch version with the embedding and the cache-update copies
+   bitwise, no event-wait violation and the waits and signals the table
+   implies on every worker — then the same step traced at W_max: the
+   heap outside the ring bitwise equal to the untraced run, the ticks a
+   permutation, the event order clean, the Perfetto export valid.  Then
+   the dynamic scheduler (the ready pools, lowered from the same compiled
+   graphs) at the same W: logits and caches bitwise equal to the static
+   kernel's, within 2e-4 of the plain dynamic version, every pool
+   drained, T pops with the pop trace a permutation of the rows, no
+   violation; traced at W_max with a clean event order and the tensors
+   and event counters bitwise equal to the untraced run; 50 launches
+   back to back at W_max with bitwise-equal logits;
 3. the slice itself: full 30-layer deepseek-7b (B=2, S=128, random
    weights drawn from a seeded generator straight into the heap), one
-   plan at W_max.  A ``ServingEngine`` answers 4 requests (16-token
-   prompts, 8 new tokens) with every decode step one kernel launch; the
-   same calls are then teacher-forced through the torch Program, which
-   reads the weights as strided views of the same heap, and every decode
-   step's logits are held to it within 3e-4.  The W = 1 table runs on
-   the same heap (the layout of weights and state does not depend on W)
-   and its logits equal W_max's bitwise.  Then the decode step is timed
-   at W = 1 and at W_max (CUDA events, after warm-up) beside the torch
-   Program's step and the plain version, the kernel's logits are held to
-   the plain version's within 3e-4, the per-worker counters are shown,
-   and each task kind is timed alone at W_max;
+   compile at W_max lowered to the dynamic plan (the Program) and the
+   static plan on one heap.  A ``ServingEngine`` answers 4 requests with
+   ragged prompts (16, 40, 72 and 100 tokens, 8 new tokens each, chunk
+   16) through ``scheduler="dynamic"``, every decode step one kernel
+   launch; the same calls are then teacher-forced through the torch
+   Program, which reads the weights as strided views of the same heap,
+   and every decode step's logits are held to it within 3e-4.  On the
+   same heap the static W_max table, the static W = 1 table (its own
+   compile) and the dynamic table give bitwise-equal logits.  Then the
+   decode step is timed (CUDA events, after warm-up): static at W_max and
+   W = 1, dynamic at W_max, at equal (64, 64) and ragged (16, 120)
+   lengths, and the dynamic walk of an all-noop table (the pops and
+   pushes alone), beside the torch Program's step and the plain version;
+   the kernel's logits are held to the plain version's within 3e-4, the
+   per-worker counters and the dynamic pop sources are shown, and each
+   task kind is timed alone under the static scheduler;
 4. prints one JSON line on the kernels (launches on the main path, error
    against the plain version, times, the bound), the device line last.
 """
@@ -115,14 +128,57 @@ print("no fault", flush=True)
 """
 
 
+_STUCK_DYN = r"""
+import dataclasses, torch
+from repro_torch.configs import get_config
+from repro_torch.megakernel import (MegakernelExecutor,
+                                    compile_decode_megakernel)
+cfg = dataclasses.replace(get_config("deepseek-7b").reduced(), n_layers=1)
+plan = compile_decode_megakernel(cfg, 2, 16, num_workers=4,
+                                 scheduler="dynamic")
+ex = MegakernelExecutor(plan, cfg, "cuda")
+ex.init_weights(torch.Generator(device="cuda").manual_seed(0))
+ex.write_step_inputs([3, 7], [1, 12])
+ex.launch()
+torch.cuda.synchronize()
+print("clean launch ok", flush=True)
+ex._sched[0, 0] += 1                     # event 0 never triggers
+ex.write_step_inputs([3, 7], [1, 12])
+ex.launch()
+torch.cuda.synchronize()
+print("no fault", flush=True)
+"""
+
+
+def _child_fails(script, what):
+    """Run ``script`` in a child process that must fail at the deadline
+    after one clean launch; returns a line for the log."""
+    from repro_torch.megakernel.kernel import SPIN_TIMEOUT_S
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script],
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True,
+                          timeout=SPIN_TIMEOUT_S + 180)
+    took = time.perf_counter() - t0
+    assert proc.returncode != 0 and "clean launch ok" in proc.stdout \
+        and "no fault" not in proc.stdout, (proc.stdout, proc.stderr)
+    err = [ln for ln in proc.stderr.splitlines() if "CUDA error" in ln]
+    assert err and took >= SPIN_TIMEOUT_S, (proc.stderr[-2000:], took)
+    fault = [ln for ln in proc.stdout.splitlines() if "deadline" in ln]
+    return (f"{what} failed its process after {took:.1f} s (deadline "
+            f"{SPIN_TIMEOUT_S} s, process start included): "
+            f"{err[-1].strip()}"
+            + (f"; the kernel printed: {fault[0].strip()}" if fault else ""))
+
+
 def phase_faults(plan, w_max):
     """With the statics of the full-width plan: a W that cannot be
-    resident raises before launch; a wait past its deadline fails its
-    process instead of hanging."""
+    resident raises before launch; a wait past its deadline, and a
+    dynamic plan with an event that never triggers, fail their process
+    instead of hanging."""
     from repro_torch.megakernel import (launch_count, megakernel,
                                         reset_launch_count)
-    from repro_torch.megakernel.kernel import (SPIN_TIMEOUT_S,
-                                               check_workers, max_workers)
+    from repro_torch.megakernel.kernel import check_workers, max_workers
     n = max_workers(plan.statics, "cuda")
     assert n >= w_max, (n, w_max)
     statics = dict(plan.statics, W=n + 1)
@@ -142,22 +198,11 @@ def phase_faults(plan, w_max):
         refused = str(exc)
     assert launch_count() == 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", _STUCK],
-                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
-                          capture_output=True, text=True,
-                          timeout=SPIN_TIMEOUT_S + 120)
-    took = time.perf_counter() - t0
-    assert proc.returncode != 0 and "clean launch ok" in proc.stdout \
-        and "no fault" not in proc.stdout, (proc.stdout, proc.stderr)
-    err = [ln for ln in proc.stderr.splitlines() if "CUDA error" in ln]
-    assert err and took >= SPIN_TIMEOUT_S, (proc.stderr[-2000:], took)
-    fault = [ln for ln in proc.stdout.splitlines() if "deadline" in ln]
+    stuck = _child_fails(_STUCK, "a wait on an unsignalled event")
+    stuck_dyn = _child_fails(_STUCK_DYN, "a dynamic plan whose event 0 has "
+                             "its trigger count raised by one")
     log(f"faults ok: {n} CTAs fit at once; W={n + 1} refused before "
-        f"launch ({refused}); a wait on an unsignalled event failed its "
-        f"process after {took:.1f} s (deadline {SPIN_TIMEOUT_S} s, process "
-        f"start included): {err[-1].strip()}"
-        + (f"; the kernel printed: {fault[0].strip()}" if fault else ""))
+        f"launch ({refused}); {stuck}; {stuck_dyn}")
 
 
 def _check_cache_updates(plan, heap, plain, seq_lens):
@@ -206,6 +251,116 @@ def _check_events(plan, counters):
             sum(c["event_signals"] for c in counters))
 
 
+def _check_dynamic(ex):
+    """A dynamic launch's own accounting: zero violations, every wait and
+    signal the table holds counted once, every pool drained (pushed ==
+    popped), T pops from the three sources, and the pop trace a
+    permutation of the T rows.  Returns the pop counters."""
+    plan = ex.plan
+    T = plan.dyn.num_tasks
+    counters = ex.worker_counters()
+    assert all(c["event_wait_violations"] == 0 for c in counters), counters
+    assert sum(c["event_waits"] for c in counters) \
+        == int((plan.descs[:, 32] >= 0).sum())
+    assert sum(c["event_signals"] for c in counters) \
+        == int((plan.descs[:, 34] >= 0).sum())
+    qc = ex.scheduler_counters()
+    assert qc["queue_pushed"] == qc["queue_popped"], qc
+    assert sum(qc["queue_popped"]) == T, qc
+    assert qc["pops_own"] + qc["pops_overflow"] + qc["steals"] == T, qc
+    trace = ex.pop_trace()
+    assert np.array_equal(np.sort(trace[:T]), np.arange(T))
+    assert (trace[T:] == -1).all()
+    return qc
+
+
+def _pops(qc):
+    return (f"pops {qc['pops_own']} own / {qc['pops_overflow']} overflow / "
+            f"{qc['steals']} steals, {qc['idle_slots']} empty polls")
+
+
+def phase_dynamic(cfg2, w_max, plans, base, first, toks, lens):
+    """The dynamic scheduler at 2 layers from the static plans' compiled
+    graphs on the same heap image: bitwise equal to the static kernel,
+    within 2e-4 of the plain dynamic version, drained pools, a traced run
+    with a clean event order, and 50 launches with equal logits."""
+    from repro_torch.megakernel import (MegakernelExecutor, launch_count,
+                                        lower_tgraph, megakernel_plain,
+                                        reset_launch_count)
+    from repro_torch.obs import check_event_order, decode_ring
+
+    def run(plan):
+        ex = MegakernelExecutor(plan, cfg2, "cuda")
+        ex.upload(base.clone())
+        ex.write_step_inputs(toks, lens)
+        reset_launch_count()
+        ex.launch()
+        torch.cuda.synchronize()
+        assert launch_count() == 1
+        return ex
+
+    errs, wide = [], None
+    for w, splan in plans.items():
+        plan = lower_tgraph(splan.compiled, cfg2, scheduler="dynamic")
+        ex = run(plan)
+        for n, v in first.items():
+            assert torch.equal(plan.view(ex.heap, n), v), (w, n)
+        plain = base.clone()
+        ex_plain = MegakernelExecutor(plan, cfg2, "cuda")
+        ex_plain.upload(plain)
+        ex_plain.write_step_inputs(toks, lens)
+        megakernel_plain(plain, plan.descs, plan.statics,
+                         plan.dyn.sched_table())
+        errs.append(_close(plan.view(ex.heap, "logits"),
+                           plan.view(plain, "logits"), 2e-4))
+        qc = _check_dynamic(ex)
+        log(f"  dynamic W={plan.num_workers}: {plan.dyn.num_tasks} tasks, "
+            f"{plan.num_events} event counters, largest fan-out "
+            f"{plan.dyn.max_out}; logits and caches bitwise equal to the "
+            f"static kernel; vs plain max_err={errs[-1]:.3e}; pools "
+            f"drained, pop trace a permutation, 0 violations; {_pops(qc)}")
+        del plain, ex_plain
+        if w == w_max:
+            wide = ex
+        else:
+            del ex
+        torch.cuda.empty_cache()
+
+    traced = lower_tgraph(wide.plan.compiled, cfg2, scheduler="dynamic",
+                          trace=True)
+    ex = run(traced)
+    lo = traced.queue_offset
+    assert torch.equal(ex.heap[:lo], wide.heap[:lo])
+    _check_dynamic(ex)
+    ring = ex.task_ring()
+    ticks = np.sort(np.concatenate([ring[:, 3], ring[:, 4]]))
+    assert np.array_equal(ticks, np.arange(2 * ring.shape[0]))
+    tl = decode_ring(traced, ring)
+    assert 0 < len(tl.events) <= traced.dyn.num_tasks
+    order = check_event_order(tl)
+    assert order == [], order[:5]
+    del ex
+    torch.cuda.empty_cache()
+
+    steals = []
+    for i in range(50):
+        wide.write_step_inputs(toks, lens)
+        wide.launch()
+        assert torch.equal(wide.plan.view(wide.heap, "logits"),
+                           first["logits"]), i
+        steals.append(_check_dynamic(wide)["steals"])
+    log(f"phase 2 dynamic ok: W in (1, 2, 4, {wide.plan.num_workers}) "
+        f"bitwise equal to static, max_err vs plain {max(errs):.3e}; traced "
+        f"at W={traced.num_workers}: tensors and event counters bitwise "
+        f"equal, ticks a permutation, check_event_order clean over "
+        f"{len(tl.events)} pops; 50 launches at W={wide.plan.num_workers} "
+        f"with bitwise-equal logits (steals per launch {min(steals)}-"
+        f"{max(steals)})")
+    del wide
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
 def phase_workers(cfg, w_max):
     """Two layers at full width, one heap image: the kernel at W ∈ {1, 2,
     4, W_max} against each other and against its plain version, then
@@ -235,8 +390,10 @@ def phase_workers(cfg, w_max):
         f"TN={p1.statics['TN']} TM={p1.statics['TM']} TK={p1.statics['TK']}")
     phase_faults(wide, w_max)
 
-    # one heap image, sized for the largest tail (the traced W_max plan)
-    src = MegakernelExecutor(traced, cfg2, "cuda")
+    # one heap image, sized for the largest tail (a traced W_max plan)
+    big = max([traced, lower_tgraph(wide.compiled, cfg2, scheduler="dynamic",
+                                    trace=True)], key=lambda p: p.heap_size)
+    src = MegakernelExecutor(big, cfg2, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     src.init_weights(gen)
     for name in traced.input_classes()["state"]:
@@ -309,20 +466,26 @@ def phase_workers(cfg, w_max):
         f"a permutation of 0..{2 * ring.shape[0] - 1}, check_event_order "
         f"clean over {len(tl.events)} events ({n_wait} waiters), "
         f"Perfetto JSON valid")
-    del ex, wide_heap, src, base
+    del ex, wide_heap
     torch.cuda.empty_cache()
-    return max(errs)
+    err_dyn = phase_dynamic(cfg2, w_max, plans, base, first, toks, lens)
+    del src, base
+    torch.cuda.empty_cache()
+    return max(max(errs), err_dyn)
 
 
 def _record(prog, calls):
     """Log every state-changing call of a megakernel Program with its
-    result; every step must end with no event-wait violation."""
+    result; every step must end with no event-wait violation and, under
+    the dynamic scheduler, with its pools drained and T pops."""
     step, prefill, reset = prog.step, prog.prefill, prog.reset_slot
 
     def rec_step(tokens, seq_lens, positions=None):
         out = step(tokens, seq_lens, positions)
-        bad = prog.worker_stats["event_wait_violations"]
+        bad = prog.executor.pipeline_counters()["event_wait_violations"]
         assert bad == 0, bad
+        if prog.plan.dynamic:
+            _check_dynamic(prog.executor)
         calls.append(("step", np.array(tokens), np.array(seq_lens), out))
         return out
 
@@ -369,10 +532,15 @@ def _kernel_ms(ex, toks, lens, n, descs=None):
     """Mean milliseconds of the executor's kernel launch (or of a launch
     of ``descs`` on its heap) over ``n`` launches after one warm-up, by
     CUDA events around each launch alone; each launch follows the step's
-    ``index_copy_``, which zeroes the event counters."""
+    ``index_copy_``, which zeroes the event counters and rewrites the
+    queue image."""
     from repro_torch.megakernel import megakernel
-    launch = ex.launch if descs is None else \
-        (lambda: megakernel(ex.heap, descs, ex.plan.statics))
+    launch = ex.launch
+    if descs is not None:
+        plan = ex.plan
+        sched = torch.from_numpy(plan.dyn.sched_table()).cuda() \
+            if plan.dynamic else None
+        launch = lambda: megakernel(ex.heap, descs, plan.statics, sched)
     times = []
     for i in range(n + 1):
         ex.write_step_inputs(toks, lens)
@@ -405,32 +573,44 @@ def _time_by_kind(ex, plan, toks, lens):
     return out
 
 
+PROMPTS = (16, 40, 72, 100)           # ragged prompt lengths, tokens
+
+
 def phase_serve(cfg, w_max):
-    """The slice: full deepseek-7b served through the kernel at W_max."""
+    """The slice: full deepseek-7b served through the dynamic kernel at
+    W_max, the static tables on the same heap."""
     from repro_torch.api import compile as mk_compile
     from repro_torch.megakernel import (MegakernelExecutor,
                                         compile_decode_megakernel,
-                                        launch_count, megakernel_plain,
+                                        launch_count, lower_tgraph,
+                                        megakernel_plain,
                                         reset_launch_count)
     from repro_torch.runtime import Request, ServingEngine
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    prog = mk_compile(cfg, B, S, backend="megakernel", num_workers=w_max)
-    plan = prog.plan
-    W = plan.num_workers
+    prog = mk_compile(cfg, B, S, backend="megakernel", num_workers=w_max,
+                      scheduler="dynamic")
+    dplan = prog.plan
+    W = dplan.num_workers
     assert W >= 2, W
-    log(f"  30-layer plan at W={w_max}: {W} workers used, {plan.num_steps} "
-        f"steps, {plan.descs.shape[0]} rows, {plan.num_events} event "
-        f"counters, heap {plan.heap_size * 4 / 1e9:.2f} GB "
+    log(f"  30-layer dynamic plan at W={w_max}: {W} workers used, "
+        f"{dplan.dyn.num_tasks} tasks, {dplan.num_events} event counters, "
+        f"largest fan-out {dplan.dyn.max_out}, initial ready set "
+        f"{sum(map(len, dplan.dyn.initial))} rows, heap "
+        f"{dplan.heap_size * 4 / 1e9:.2f} GB "
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
+    plan = lower_tgraph(dplan.compiled, cfg)          # static, same graph
     plan1 = compile_decode_megakernel(cfg, B, S)
-    assert plan1.heap_size <= plan.heap_size
-    assert all((plan1.layout[n].offset, plan1.layout[n].ld)
-               == (plan.layout[n].offset, plan.layout[n].ld)
-               for n in plan.layout)
-    log(f"  30-layer plan at W=1: {plan1.descs.shape[0]} rows "
-        f"({time.perf_counter() - t0:.1f} s)")
+    for p in (plan, plan1):                 # both run on the dynamic heap
+        assert p.heap_size <= dplan.trace_offset
+        assert all((p.layout[n].offset, p.layout[n].ld)
+                   == (dplan.layout[n].offset, dplan.layout[n].ld)
+                   for n in dplan.layout)
+    log(f"  30-layer static plans of the same compile at W={W}: "
+        f"{plan.num_steps} steps, {plan.descs.shape[0]} rows, "
+        f"{plan.num_events} event counters; at W=1 (its own compile): "
+        f"{plan1.descs.shape[0]} rows ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     prog.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
@@ -441,8 +621,8 @@ def phase_serve(cfg, w_max):
     _record(prog, calls)
     eng = ServingEngine(prog, chunk=16)
     rng = np.random.default_rng(SEED)
-    for i in range(4):
-        eng.submit(Request(i, rng.integers(1, cfg.vocab, size=16).tolist(),
+    for i, n in enumerate(PROMPTS):
+        eng.submit(Request(i, rng.integers(1, cfg.vocab, size=n).tolist(),
                            max_new_tokens=8))
     reset_launch_count()
     t0 = time.perf_counter()
@@ -454,8 +634,10 @@ def phase_serve(cfg, w_max):
     assert all(0 <= t < cfg.vocab for r in done for t in r.output)
     assert launches > 0 and launches == eng.decode_iterations, \
         (launches, eng.decode_iterations)
-    log(f"  served 4 requests in {wall:.1f} s: {eng.iterations} iterations,"
-        f" {eng.decode_iterations} decode steps, {launches} kernel launches")
+    log(f"  served 4 requests (prompts {PROMPTS} tokens, 8 new each, chunk "
+        f"16) through scheduler='dynamic' in {wall:.1f} s: "
+        f"{eng.iterations} iterations, {eng.decode_iterations} decode "
+        f"steps, {launches} kernel launches")
     for r in sorted(done, key=lambda r: r.request_id):
         log(f"  req {r.request_id}: {r.output}")
 
@@ -476,24 +658,44 @@ def phase_serve(cfg, w_max):
     log(f"  teacher-forced {n_steps} decode steps through the torch Program:"
         f" max |logits diff| {worst:.3e} (<= 3e-4)")
 
-    # W = 1 on the same heap: the same step's logits, bitwise
-    ex = prog.executor
+    # the static tables at W_max and W = 1 on the same heap: the same
+    # step's logits, bitwise
+    exd = prog.executor
+    ex = MegakernelExecutor(plan, cfg, "cuda")
+    ex.upload(exd.heap)                     # the same tensor, no copy
     ex1 = MegakernelExecutor(plan1, cfg, "cuda")
-    ex1.upload(ex.heap)                     # the same tensor, no copy
+    ex1.upload(exd.heap)
     toks, lens = rng.integers(1, cfg.vocab, size=B), np.array([64, 64])
-    ex1.write_step_inputs(toks, lens)
-    ex1.launch()
-    logits1 = plan.view(ex.heap, "logits").clone()
-    ex.write_step_inputs(toks, lens)
-    ex.launch()
-    assert torch.equal(plan.view(ex.heap, "logits"), logits1)
-    log(f"  one step at W=1 and at W={W} on one heap: logits bitwise equal")
+    ragged = np.array([16, 120])
+    outs = []
+    for e in (ex1, ex, exd):
+        e.write_step_inputs(toks, lens)
+        e.launch()
+        outs.append(plan.view(exd.heap, "logits").clone())
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    qc = _check_dynamic(exd)
+    log(f"  one step of the static table at W=1 and W={W} and of the "
+        f"dynamic table at W={W} on one heap: logits bitwise equal; "
+        f"dynamic {_pops(qc)}")
 
-    # time the decode step at W_max and at W = 1, the torch Program's
+    # time the decode step: static at W_max and W = 1, dynamic at W_max,
+    # at equal and ragged lengths, the dynamic walk, the torch Program's
     # step and the plain version
     ms = _kernel_ms(ex, toks, lens, 5)
+    ms_dyn = _kernel_ms(exd, toks, lens, 5)
+    qc = _check_dynamic(exd)
+    ms_static_ragged = _kernel_ms(ex, toks, ragged, 5)
+    ms_dyn_ragged = _kernel_ms(exd, toks, ragged, 5)
+    qc_ragged = _check_dynamic(exd)
+    walk = dplan.descs.copy()
+    walk[:, 0] = 0
+    dyn_walk_ms = _kernel_ms(exd, toks, lens, 3,
+                             torch.from_numpy(walk).cuda())
+    qc_walk = _check_dynamic(exd)
     ms1 = _kernel_ms(ex1, toks, lens, 2)
     step_ms = _events_ms(lambda: type(prog).step(prog, toks, lens), 3)
+    ex.write_step_inputs(toks, lens)
+    ex.launch()
     counters = ex.worker_counters()
     waits, sigs = _check_events(plan, counters)
     kernel_logits = plan.view(ex.heap, "logits").clone()
@@ -511,12 +713,23 @@ def phase_serve(cfg, w_max):
                          flops / H100_F32_FLOPS)
     bound_by = "bytes" if nbytes / H100_HBM_BYTES_PER_S \
         >= flops / H100_F32_FLOPS else "operations"
+    rbytes, rflops = _step_work(plan, cfg, ragged)
+    bound_ragged = 1e3 * max(rbytes / H100_HBM_BYTES_PER_S,
+                             rflops / H100_F32_FLOPS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  decode step: kernel at W={W} {ms:.3f} ms, at W=1 {ms1:.3f} ms; "
-        f"Program.step {step_ms:.3f} ms ({B / step_ms * 1e3:.2f} tokens/s), "
-        f"torch Program step {library_ms:.3f} ms, plain version "
-        f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB,"
-        f" {flops / 1e9:.1f} GFLOP)")
+    log(f"  decode step at lengths {tuple(lens)}: static kernel at W={W} "
+        f"{ms:.3f} ms, dynamic kernel at W={W} {ms_dyn:.3f} ms, static at "
+        f"W=1 {ms1:.3f} ms; Program.step (dynamic) {step_ms:.3f} ms "
+        f"({B / step_ms * 1e3:.2f} tokens/s), torch Program step "
+        f"{library_ms:.3f} ms, plain version {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB, {flops / 1e9:.1f} "
+        f"GFLOP)")
+    log(f"  decode step at ragged lengths {tuple(ragged)}: static "
+        f"{ms_static_ragged:.3f} ms, dynamic {ms_dyn_ragged:.3f} ms, bound "
+        f"{bound_ragged:.3f} ms; the dynamic walk of the all-noop table "
+        f"(pops, pushes, waits and signals alone) {dyn_walk_ms:.3f} ms")
+    log(f"  dynamic pop sources (last timed launch): equal lengths "
+        f"{_pops(qc)}; ragged {_pops(qc_ragged)}; walk {_pops(qc_walk)}")
     log(f"  kernel vs plain at 30 layers: logits max_err={err30:.3e}; peak "
         f"memory {peak_gb:.2f} GB")
     table = _table_events(plan)
@@ -529,20 +742,46 @@ def phase_serve(cfg, w_max):
             runs[-1][1] += 1
         else:
             runs.append([p, 1])
-    util = prog.worker_stats["worker_utilization"]
-    log(f"  per worker at W={W} (tasks/waits/signals; {busy} of {W} workers "
-        f"ran tasks, {waits} waits and {sigs} signals in all, 0 "
-        f"violations; the partitioner's estimated utilization under its "
-        f"cost model min {min(util):.2f} mean {sum(util) / W:.2f} max "
-        f"{max(util):.2f}): " + " ".join(p if k == 1 else f"{p} x{k}"
-                                         for p, k in runs))
-    log(f"  kernel time by kind alone at W={W} (kind ms/tasks; noop = the "
-        "walk of all rows with the event protocol): "
-        + ", ".join(_time_by_kind(ex, plan, toks, lens)))
+    util = plan.compiled.partition.worker_utilization()
+    log(f"  per worker of the static table at W={W} (tasks/waits/signals; "
+        f"{busy} of {W} workers ran tasks, {waits} waits and {sigs} signals "
+        f"in all, 0 violations; the partitioner's estimated utilization "
+        f"under its cost model min {min(util):.2f} mean "
+        f"{sum(util) / W:.2f} max {max(util):.2f}): "
+        + " ".join(p if k == 1 else f"{p} x{k}" for p, k in runs))
+    log(f"  kernel time by kind alone under the static scheduler at W={W} "
+        "(kind ms/tasks; noop = the walk of all rows with the event "
+        "protocol): " + ", ".join(_time_by_kind(ex, plan, toks, lens)))
     log("phase 3 ok")
     return {"launches": launches, "max_abs_err": err30, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "workers": W, "ms_w1": ms1}
+            "library_ms": library_ms, "workers": W, "ms_w1": ms1,
+            "ms_dyn": ms_dyn, "ms_dyn_ragged": ms_dyn_ragged,
+            "ms_static_ragged": ms_static_ragged, "dyn_walk_ms": dyn_walk_ms,
+            "bound_ragged_ms": bound_ragged}
+
+
+def standalone_bounds():
+    """The bounds of the standalone TPU kernels still to port, at the
+    largest float32 shape of ``tests/test_kernels.py`` (each input read
+    once, the output written once; causal attention does half the
+    products): (name, shape, bytes, FLOPs, bound ms, bound by)."""
+    out = []
+    m, k, n = 384, 128, 384
+    out.append(("matmul", f"({m},{k})x({k},{n})", 4 * (m * k + k * n + m * n),
+                2 * m * k * n))
+    rows, d = 256, 512
+    out.append(("rmsnorm", f"({rows},{d})", 4 * (2 * rows * d + d),
+                4 * rows * d))
+    b, s, h, hd = 2, 256, 4, 64
+    out.append(("flash_attention", f"causal B={b} S={s} H={h} hd={hd}",
+                4 * 4 * b * s * h * hd, 4 * b * h * s * s * hd // 2))
+    rows_out = []
+    for name, shape, nbytes, flops in out:
+        t_b, t_f = nbytes / H100_HBM_BYTES_PER_S, flops / H100_F32_FLOPS
+        rows_out.append((name, shape, nbytes, flops, 1e3 * max(t_b, t_f),
+                         "bytes" if t_b >= t_f else "operations"))
+    return rows_out
 
 
 def main() -> int:
@@ -565,6 +804,9 @@ def main() -> int:
               "source": "src/repro_torch/megakernel/csrc/megakernel.cu",
               "replaces": "src/repro/kernels/megakernel/kernel.py:1175"}
     kernel.update(k)
+    for row in standalone_bounds():
+        log("  still to port: %s at %s: %d bytes, %d FLOP, bound %.6f ms "
+            "(%s)" % row)
     log(json.dumps({"kernels": [kernel]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

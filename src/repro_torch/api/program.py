@@ -13,8 +13,11 @@ Backends:
 * ``"megakernel"`` — the hand-written CUDA persistent kernel: one launch
   per decode step against the device-resident heap, W workers (one CTA
   each) synchronised by in-heap event counters (the plain PyTorch
-  version of the kernel on a CPU heap).  ``trace=True`` adds the trace
-  ring, read back by ``Program.trace()``.
+  version of the kernel on a CPU heap).  ``scheduler="static"`` walks
+  the compiler's per-worker streams; ``scheduler="dynamic"`` pops ready
+  tasks from heap-resident pools, with stealing, and pushes the
+  consumers each completed event makes ready.  ``trace=True`` adds the
+  trace ring, read back by ``Program.trace()``.
 
 ``prefill`` runs the torch ``prefill_chunk`` against the program's state
 on both: the megakernel program reads the cache out of its heap, runs it
@@ -35,10 +38,11 @@ from ..device import resolve_device
 from ..models.lm import (check_dense, init_cache, prefill_chunk,
                          serve_step)
 
-__all__ = ["BACKENDS", "Program", "TorchProgram", "MegakernelProgram",
-           "compile"]
+__all__ = ["BACKENDS", "SCHEDULERS", "Program", "TorchProgram",
+           "MegakernelProgram", "compile"]
 
 BACKENDS = ("torch", "megakernel")
+SCHEDULERS = ("static", "dynamic")
 
 
 def _jsonable(obj):
@@ -226,11 +230,13 @@ class MegakernelProgram(Program):
     backend = "megakernel"
 
     def __init__(self, cfg, batch, max_seq, device, num_workers: int = 1,
-                 trace: bool = False):
+                 trace: bool = False, scheduler: str = "static"):
         super().__init__(cfg, batch, max_seq, device)
         from ..megakernel import MegakernelExecutor, compile_decode_megakernel
+        self.scheduler = scheduler
         self.plan = compile_decode_megakernel(cfg, batch, max_seq,
                                               num_workers=num_workers,
+                                              scheduler=scheduler,
                                               trace=trace)
         self._compiled = self.plan.compiled
         self.executor = MegakernelExecutor(self.plan, cfg, device)
@@ -256,10 +262,12 @@ class MegakernelProgram(Program):
         lengths, the cross-worker dependency cut, its estimated makespan
         and per-worker utilization under the reference's cost model) and,
         once a step has run, the kernel's own per-worker counters of the
-        last step with the event totals."""
+        last step with the event totals.  Under the dynamic scheduler it
+        adds the protocol's static numbers (``_dyn_sched_stats``) and,
+        after a step, the kernel's queue cursors and pop sources."""
         part = self.plan.compiled.partition
         out: Dict[str, Any] = {
-            "scheduler": "static",
+            "scheduler": self.scheduler,
             "num_workers": part.num_workers,
             "requested_workers": part.requested_workers,
             "queue_lens": [len(q) for q in part.queues],
@@ -275,7 +283,37 @@ class MegakernelProgram(Program):
             for k in ("event_waits", "event_wait_violations",
                       "event_signals"):
                 out[k] = sum(d[k] for d in per_worker)
+        if self.plan.dynamic:
+            out.update(self._dyn_sched_stats())
+            if self.step_count > 0:
+                out.update({f"kernel_{k}": v for k, v in
+                            self.executor.scheduler_counters().items()})
         return out
+
+    def _dyn_sched_stats(self) -> Dict[str, Any]:
+        """The dynamic scheduler's numbers that depend only on the plan,
+        computed once: the ``mpk_dyn`` makespan under the reference's
+        cost model and the sequential replay's pool depths and pop
+        sources (what the plain version does), both in Python over every
+        pop."""
+        if getattr(self, "_dyn_stats_cache", None) is None:
+            from ..core.runtime_sim import SimConfig, simulate
+            from ..runtime.dyn_sched import replay_sequential
+            part = self.plan.compiled.partition
+            depth = self.plan.compiled.stats.get("pipeline_depth", 2)
+            dres = simulate(self.plan.compiled,
+                            SimConfig(mode="mpk_dyn",
+                                      n_workers=part.requested_workers,
+                                      pipeline_depth=depth))
+            tr = replay_sequential(self.plan.dyn)
+            self._dyn_stats_cache = {
+                "dyn_sim_makespan_us": dres.makespan * 1e6,
+                "queue_max_depth": tr.max_depth,
+                "replay_pops_own": tr.pops_own,
+                "replay_pops_overflow": tr.pops_overflow,
+                "replay_steals": tr.steals,
+            }
+        return self._dyn_stats_cache
 
     def trace(self):
         """The kernel-written trace ring of the LAST step as an
@@ -338,20 +376,25 @@ class MegakernelProgram(Program):
 
 
 def compile(cfg, batch: int, max_seq: int, backend: str = "torch", *,
-            device=None, num_workers: int = 1,
+            device=None, num_workers: int = 1, scheduler: str = "static",
             trace: bool = False) -> Program:
     """Compile ``cfg``'s decode step once; returns a stateful
     :class:`Program` for ``backend`` ("torch" | "megakernel") on
     ``device`` (the card unless ``device="cpu"``; with no card and no
     device this raises).  The compiler runs with the reference's default
     options.  For the megakernel, ``num_workers`` is the most workers the
-    partitioner may use (one CTA each on the card) and ``trace`` adds
-    the trace ring; the torch backend ignores both."""
+    partitioner may use (one CTA each on the card), ``scheduler`` is
+    "static" (the partition's per-worker streams) or "dynamic" (ready
+    pools with stealing, the partition as the affinity hint) and
+    ``trace`` adds the trace ring; the torch backend ignores all three."""
+    if scheduler not in SCHEDULERS:
+        raise ValueError(f"unknown scheduler {scheduler!r}; "
+                         f"expected one of {SCHEDULERS}")
     device = resolve_device(device)
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend == "megakernel":
         return MegakernelProgram(cfg, batch, max_seq, device, num_workers,
-                                 trace)
+                                 trace, scheduler)
     return TorchProgram(cfg, batch, max_seq, device)

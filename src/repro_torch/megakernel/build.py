@@ -64,7 +64,9 @@ def load_library() -> ctypes.CDLL:
         path, _log = build_library()
         lib = ctypes.CDLL(str(path))
         P, I64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.mk_launch.argtypes = [P, P] + [I64] * 11 + [ctypes.c_double, P]
+        lib.mk_launch.argtypes = ([P, P] + [I64] * 11
+                                  + [ctypes.c_double, I64, I64, I64, P]
+                                  + [I64] * 7 + [P])
         lib.mk_launch.restype = ctypes.c_int
         lib.mk_max_workers.argtypes = [I64, I64]
         lib.mk_max_workers.restype = I64

@@ -3,14 +3,17 @@
 //
 // Replaces: the Pallas persistent megakernel of the JAX package,
 // repro/kernels/megakernel/kernel.py `make_megakernel` (pallas_call at
-// kernel.py:1175), for the static W-worker scheduler and the dense task
-// kinds 0-8 (noop, matmul + bias + activation, rmsnorm, rope, glu,
-// residual/scale-add, GQA decode attention, KV cache update, embedding),
-// with the in-heap event wait and signal and the trace ring.
+// kernel.py:1175), for the static W-worker scheduler, the dynamic
+// scheduler (its pop at kernel.py:411-499, `_push` at :1039, the
+// signal-and-enqueue at :1063 and the dynamic trace record at :1104) and
+// the dense task kinds 0-8 (noop, matmul + bias + activation, rmsnorm,
+// rope, glu, residual/scale-add, GQA decode attention, KV cache update,
+// embedding), with the in-heap event wait and signal and the trace ring.
 //
 // Design: one CTA of 512 threads per worker, all W CTAs resident at once
-// (a cooperative launch, which refuses a grid that cannot be).  CTA w
-// walks the descriptor rows s * W + w in order; each kind is a __device__
+// (a cooperative launch, which refuses a grid that cannot be).  Under the
+// static scheduler CTA w walks the descriptor rows s * W + w in order
+// (the dynamic scheduler is below); each kind is a __device__
 // function selected by a switch on word 0, with __syncthreads() between
 // tasks so that a task's heap stores are visible to the CTA's next task,
 // and the next descriptor row is fetched while the current task runs.
@@ -51,6 +54,44 @@
 // CTA keeps one SM's worth of loads in flight, so the W workers (one per
 // SM) are what bring the weight stream towards the card's rate.
 //
+// Dynamic scheduler (a plan with the DYN static; protocol in
+// repro_torch/runtime/dyn_sched.py).  The table is flat, one row per task
+// in linearized order, and no CTA knows its tasks in advance: each loops
+//   pop -> wait check -> task -> signal-and-enqueue
+// until every one of the T tasks has run, which it reads off the ticket
+// (a port-only control word that every completed task fetch-and-adds).
+//   pop    one warp scans the CTA's own 128-word pool (four words a lane,
+//          then a shuffle-min) and claims the minimum row id with a
+//          compare-and-swap of the word's bits (row -> QUEUE_EMPTY; row
+//          ids are exact in float32); a lost race rescans.  Meanwhile the
+//          other threads read all W + 1 [pushed, popped] cursor pairs in
+//          one coalesced pass.  With its own pool empty the CTA scans the
+//          overflow queue if its occupancy is positive, else the first
+//          victim in (w + k) % W order whose occupancy is positive.  The
+//          cursors lag the slots (they are added after the slot's CAS),
+//          so they only choose where to scan: the scan decides.  A poll
+//          that claims nothing backs off (__nanosleep) and polls again,
+//          under the same %globaltimer deadline as an event wait (no pop
+//          for that long traps, with the fault in the counter block).
+//   wait   the popped task's event was fully triggered before it was
+//          pushed, so thread 0's acquire load must already see the
+//          trigger count; anything else counts a violation (which must
+//          stay 0) and falls back to the bounded spin.
+//   signal after the task's stores: __syncthreads(), __threadfence(),
+//          then old = atomicAdd(counter, 1).  Only the producer that sees
+//          old + 1 == trigger pushes the event's consumers (the scheduler
+//          table), one consumer per thread, each thread fencing before it
+//          CASes QUEUE_EMPTY -> row into the first empty slot of the
+//          consumer's affinity pool (descriptor word 35), or of the
+//          overflow queue when that pool is full.
+// The pop trace and the trace ring are indexed by the ticket, not a grid
+// slot (under concurrency slots are no sequence): they list the tasks in
+// the order they completed.  Their entries past T stay as the executor
+// wrote them at upload.  The descriptor row is
+// loaded after the claim: nothing can be fetched ahead.  Each scheduler
+// is its own instantiation of the kernel (a template on DYN), so that the
+// dynamic loop's state takes no registers from the static loop's tasks.
+//
 // Numerics follow the reference in float32: no TF32, no fast math, GELU
 // in its tanh form.  A task's arithmetic does not depend on W, so the
 // outputs are bitwise equal across W.
@@ -77,6 +118,9 @@ constexpr int HEAD_BYTES = 384;    // descriptor row + reduction words
 constexpr int TRACE_HEADER = 8;
 constexpr int TRACE_WORDS = 8;
 constexpr long long ROW_SPILL = 1LL << 20;
+constexpr int QCAP = 128;          // words of one ready pool
+constexpr float QUEUE_EMPTY = 1.0e9f;
+constexpr float QTH = QUEUE_EMPTY * 0.5f;  // below: a row id
 // the code mk_launch returns for a grid that cannot be co-resident
 constexpr int ERR_NOT_RESIDENT = static_cast<int>(
     cudaErrorCooperativeLaunchTooLarge);
@@ -92,6 +136,20 @@ struct Statics {
   long long tr_off;      // heap offset of the trace ring, -1: no ring
   long long spin_ns;     // deadline of one event wait
   float theta;           // RoPE base
+  long long ng;          // most KV groups of an attention tile
+  // the reference's chunking, for the transfer counts: TKC-deep matmul
+  // chunks (KCH of them) and TS-row attention chunks (SCH of them)
+  int tkc, kch, ts, sch;
+  // dynamic scheduler (dyn == 0: the static grid)
+  long long dyn;
+  const int* sched;      // (events, sched_w) [trigger, n_out, consumers]
+  long long sched_w;
+  long long qoff;        // heap offset of the pools, then the overflow
+  long long ov_words;    // words of the overflow queue
+  long long qc_off;      // heap offset of the W + 1 [pushed, popped] pairs
+  long long pt_off;      // heap offset of the pop trace
+  long long ctl_off;     // heap offset of the ticket
+  long long n_tasks;     // T: pops that end the launch
 };
 
 // Dynamic shared memory: [descriptor row | block-reduction words]
@@ -136,6 +194,21 @@ __device__ __forceinline__ float ld_acquire(const float* p) {
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
                : "=r"(v) : "l"(p) : "memory");
   return __uint_as_float(v);
+}
+
+// Relaxed load at GPU scope: a word other CTAs update in this launch.
+__device__ __forceinline__ float ld_relaxed(const float* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return __uint_as_float(v);
+}
+
+__device__ __forceinline__ bool cas_word(float* p, float expect,
+                                         float value) {
+  const unsigned e = __float_as_uint(expect);
+  return atomicCAS(reinterpret_cast<unsigned*>(p), e,
+                   __float_as_uint(value)) == e;
 }
 
 __device__ __forceinline__ unsigned long long global_ns() {
@@ -464,22 +537,180 @@ __device__ void k_embed(float* heap, const long long* d, const Statics& S) {
   }
 }
 
-__global__ void __launch_bounds__(NT)
-megakernel(float* heap, const long long* __restrict__ descs,
-           long long num_steps, long long num_workers, Statics S) {
-  Smem sm;
-  sm.d = reinterpret_cast<long long*>(smem_raw);
-  sm.scal = reinterpret_cast<float*>(smem_raw + DESC_WORDS * 8);
-  sm.red = reinterpret_cast<float*>(smem_raw + HEAD_BYTES);
-  sm.x = sm.red + RP * NT * VEC;
-  const long long w = blockIdx.x;
+// The counters thread 0 keeps for its worker and writes into the
+// worker's block at the end of the launch (the same counts the plain
+// version writes): tile transfers, rows in them, primary tiles
+// demand-loaded, event waits, wait violations, event signals, and under
+// the dynamic scheduler the pops from the own pool, from overflow, by
+// steal, and the polls that found nothing to claim.  The transfers are
+// counted off the tasks' path (count_rows, and thread 32 in dyn_loop).
+// No initializers: the dynamic kernel keeps its counters in shared
+// memory.
+struct Counts {
+  long long bulk, rows, fallbacks;
+  long long waits, violations, signals;
+  long long own, overflow, steals, idle;
+
+  __device__ void zero() {
+    bulk = rows = fallbacks = waits = violations = signals = 0;
+    own = overflow = steals = idle = 0;
+  }
+
+  // One task's tile transfers as the reference's kernel counts its bulk
+  // copies: the primary tile (demand-loaded), then the operands and
+  // results (megakernel_plain's _operand_transfers), in closed form.
+  // Reads only words of the heap that no task writes (its live lengths).
+  __device__ void task(const long long* d, const float* heap,
+                       const Statics& S) {
+    const long long kind = d[0], m = d[1];
+    if (kind == 0) return;
+    long long n = 0, r = 0;
+    if (d[30] > 0) { n = 1; r = d[30]; ++fallbacks; }
+    switch (kind) {
+      case 1: {                         // KCH chunks of TKC rows of K
+        const int k = static_cast<int>(d[3]);
+        const long long nb = k > 0 ? min(S.kch, (k + S.tkc - 1) / S.tkc) : 0;
+        const long long bias = d[10] >= 0 ? 1 : 0;
+        n += (S.kch - 1) + nb + bias + 1;
+        r += (S.kch - 1) * m + min(k, S.kch * S.tkc) + bias + m;
+        break;
+      }
+      case 2: n += 2; r += 1 + m; break;
+      case 3: case 4: n += 2; r += 2 * m; break;
+      case 5: n += d[8] >= 0 ? 2 : 1; r += d[8] >= 0 ? 2 * m : m; break;
+      case 6: {                         // SCH chunks of TS cache rows
+        n += 1 + m;
+        r += 1 + m;
+        for (long long i = 0; i < m; ++i) {
+          const int live = static_cast<int>(heap[d[12] + i]);
+          if (live > 0) {
+            n += 2 * S.ng * min(S.sch, (live + S.ts - 1) / S.ts);
+            r += 2 * S.ng * min(live, S.sch * S.ts);
+          }
+        }
+        break;
+      }
+      case 7: n += 1 + m; r += 1 + m; break;
+      case 8: n += 2 * m; r += 2 * m; break;
+    }
+    bulk += n;
+    rows += r;
+  }
+
+  __device__ void store(float* heap, const Statics& S, long long w) const {
+    float* st = heap + S.stats_off + w * STATS_WORDS;
+    st[0] = static_cast<float>(bulk);
+    st[1] = static_cast<float>(rows % ROW_SPILL);
+    st[2] = 0.0f;
+    st[3] = static_cast<float>(fallbacks);
+    st[4] = static_cast<float>(rows / ROW_SPILL);
+    st[5] = static_cast<float>(waits);
+    st[6] = static_cast<float>(violations);
+    st[7] = static_cast<float>(signals);
+    st[8] = static_cast<float>(own);
+    st[9] = static_cast<float>(overflow);
+    st[10] = static_cast<float>(steals);
+    st[11] = static_cast<float>(idle);
+  }
+};
+
+// Thread 0: wait until event `ev` reaches `want` signals, with acquire
+// loads, bounded by the deadline.  Under the static scheduler a counter
+// past its trigger count is a violation; under the dynamic one the count
+// must already be there, since a consumer is pushed only once its event
+// fully triggered.
+__device__ __forceinline__ void wait_event(float* heap, const Statics& S,
+                                           long long w, long long row,
+                                           long long ev, long long cnt,
+                                           Counts& c) {
+  const float* p = heap + S.event_off + ev;
+  const float want = static_cast<float>(cnt);
+  float seen = ld_acquire(p);
+  const bool early = seen != want;
+  if (seen < want) {
+    const unsigned long long t0 = global_ns();
+    while ((seen = ld_acquire(p)) < want) {
+      if (global_ns() - t0 > static_cast<unsigned long long>(S.spin_ns))
+        spin_fault(heap, S, w, row, ev, seen, cnt);
+      __nanosleep(32);
+    }
+  }
+  __threadfence();
+  ++c.waits;
+  if (S.dyn ? early : seen > want) ++c.violations;
+}
+
+__device__ __forceinline__ void run_task(long long kind, float* heap,
+                                         const long long* d,
+                                         const Statics& S, const Smem& sm) {
+  switch (kind) {
+    case 0: break;
+    case 1: k_matmul(heap, d, S, sm); break;
+    case 2: k_rmsnorm(heap, d, S, sm); break;
+    case 3: k_rope(heap, d, S); break;
+    case 4: k_glu(heap, d, S); break;
+    case 5: k_resid(heap, d, S); break;
+    case 6: k_attn(heap, d, S, sm); break;
+    case 7: k_cache_update(heap, d, S); break;
+    case 8: k_embed(heap, d, S); break;
+    default: __trap();                  // a kind of a later slice
+  }
+}
+
+// Thread 0: the trace record of one task.
+__device__ __forceinline__ void write_record(float* heap, const Statics& S,
+                                             long long slot, long long w,
+                                             long long row, long long kind,
+                                             float t_start, float t_end,
+                                             float src, long long wait_ev,
+                                             long long wait_cnt) {
+  float* rec = heap + S.tr_off + TRACE_HEADER + slot * TRACE_WORDS;
+  rec[0] = static_cast<float>(w);
+  rec[1] = static_cast<float>(row);
+  rec[2] = static_cast<float>(kind);
+  rec[3] = t_start;
+  rec[4] = t_end;
+  rec[5] = src;
+  rec[6] = wait_ev >= 0 ? static_cast<float>(wait_cnt) : 0.0f;
+  rec[7] = 0.0f;
+}
+
+// The tile transfers of `n` descriptor rows (row i at descs + (first + i
+// * stride) * DESC_WORDS), counted by the whole CTA after its tasks and
+// summed into thread 0's counters.
+__device__ void count_rows(const long long* descs, long long first,
+                           long long stride, long long n, const float* heap,
+                           const Statics& S, const Smem& sm, Counts& c) {
+  Counts mine;
+  mine.zero();
+  for (long long i = threadIdx.x; i < n; i += NT)
+    mine.task(descs + (first + i * stride) * DESC_WORDS, heap, S);
+  long long v[3] = {mine.bulk, mine.rows, mine.fallbacks};
+  long long* part = reinterpret_cast<long long*>(sm.red);
+  __syncthreads();                      // sm.red is free
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+    if ((threadIdx.x & 31) == 0) part[k * NWARP + (threadIdx.x >> 5)] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < NWARP; ++i) {
+      c.bulk += part[i];
+      c.rows += part[NWARP + i];
+      c.fallbacks += part[2 * NWARP + i];
+    }
+}
+
+// Static scheduler: CTA w walks the grid rows s * W + w in order.
+__device__ void static_loop(float* heap, const long long* __restrict__ descs,
+                            long long num_steps, long long num_workers,
+                            const Statics& S, const Smem& sm, long long w,
+                            Counts& c) {
   const long long* row0 = descs + w * DESC_WORDS;
   const long long stride = num_workers * DESC_WORDS;
-  // counters (thread 0): tile transfers, rows in them, primary tiles
-  // demand-loaded, event waits, wait violations, event signals -- the
-  // same counts the plain version writes
-  long long bulk = 0, rows = 0, fallbacks = 0;
-  long long waits = 0, violations = 0, signals = 0;
   if (threadIdx.x < DESC_WORDS && num_steps > 0)
     sm.d[threadIdx.x] = row0[threadIdx.x];
   for (long long s = 0; s < num_steps; ++s) {
@@ -490,80 +721,262 @@ megakernel(float* heap, const long long* __restrict__ descs,
       next = row0[(s + 1) * stride + threadIdx.x];
     const long long* d = sm.d;
     // thread 0 keeps the words it needs after sm.d is overwritten
-    const long long kind = d[0], m = d[1], prim = d[30];
+    const long long kind = d[0];
     const long long wait_ev = d[32], wait_cnt = d[33], sig_ev = d[34];
+    const long long row = s * num_workers + w;
     float t_start = 0.0f;
     if (threadIdx.x == 0) {
-      if (wait_ev >= 0) {
-        const float* ev = heap + S.event_off + wait_ev;
-        const float want = static_cast<float>(wait_cnt);
-        float seen = ld_acquire(ev);
-        if (seen < want) {
-          const unsigned long long t0 = global_ns();
-          while ((seen = ld_acquire(ev)) < want) {
-            if (global_ns() - t0 > static_cast<unsigned long long>(S.spin_ns))
-              spin_fault(heap, S, w, s * num_workers + w, wait_ev, seen,
-                         wait_cnt);
-            __nanosleep(32);
-          }
-        }
-        __threadfence();
-        ++waits;
-        if (seen > want) ++violations;
-      }
+      if (wait_ev >= 0) wait_event(heap, S, w, row, wait_ev, wait_cnt, c);
       if (S.tr_off >= 0) t_start = atomicAdd(heap + S.tr_off, 1.0f);
     }
     __syncthreads();                    // the wait held
-    switch (kind) {
-      case 0: break;
-      case 1: k_matmul(heap, d, S, sm); break;
-      case 2: k_rmsnorm(heap, d, S, sm); break;
-      case 3: k_rope(heap, d, S); break;
-      case 4: k_glu(heap, d, S); break;
-      case 5: k_resid(heap, d, S); break;
-      case 6: k_attn(heap, d, S, sm); break;
-      case 7: k_cache_update(heap, d, S); break;
-      case 8: k_embed(heap, d, S); break;
-      default: __trap();                // a kind of a later slice
-    }
+    run_task(kind, heap, d, S, sm);
     __syncthreads();                    // the task's stores landed
     if (threadIdx.x < DESC_WORDS) sm.d[threadIdx.x] = next;
     if (threadIdx.x == 0) {
-      if (kind != 0) {
-        if (prim > 0) { ++bulk; rows += prim; ++fallbacks; }
-        bulk += (kind == 7 || kind == 8) ? m : 1;
-        rows += m;
-      }
-      if (S.tr_off >= 0) {
-        const float t_end = atomicAdd(heap + S.tr_off, 1.0f);
-        float* rec = heap + S.tr_off + TRACE_HEADER
-                     + (s * num_workers + w) * TRACE_WORDS;
-        rec[0] = static_cast<float>(w);
-        rec[1] = static_cast<float>(s * num_workers + w);
-        rec[2] = static_cast<float>(kind);
-        rec[3] = t_start;
-        rec[4] = t_end;
-        rec[5] = -1.0f;
-        rec[6] = wait_ev >= 0 ? static_cast<float>(wait_cnt) : 0.0f;
-        rec[7] = 0.0f;
-      }
+      if (S.tr_off >= 0)
+        write_record(heap, S, row, w, row, kind, t_start,
+                     atomicAdd(heap + S.tr_off, 1.0f), -1.0f, wait_ev,
+                     wait_cnt);
       if (sig_ev >= 0) {                // release this task's stores
         __threadfence();
         atomicAdd(heap + S.event_off + sig_ev, 1.0f);
-        ++signals;
+        ++c.signals;
       }
     }
   }
-  if (threadIdx.x == 0) {
-    float* st = heap + S.stats_off + w * STATS_WORDS;
-    for (int i = 0; i < STATS_WORDS; ++i) st[i] = 0.0f;
-    st[0] = static_cast<float>(bulk);
-    st[1] = static_cast<float>(rows % ROW_SPILL);
-    st[3] = static_cast<float>(fallbacks);
-    st[4] = static_cast<float>(rows / ROW_SPILL);
-    st[5] = static_cast<float>(waits);
-    st[6] = static_cast<float>(violations);
-    st[7] = static_cast<float>(signals);
+  count_rows(descs, w, num_workers, num_steps, heap, S, sm, c);
+}
+
+// Pop with the calling warp from `words` words of ready-pool slots (a
+// pool or the overflow queue): the minimum row id, claimed by lane 0 with
+// a CAS (row -> QUEUE_EMPTY); a lost race rescans.  Every lane gets the
+// row, or -1 when the region holds none.  The pop and push helpers are
+// not inlined: their registers stay out of the tasks' allocation.
+__device__ __noinline__ long long warp_pop(float* region, long long words) {
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    float best = QUEUE_EMPTY;
+    long long at = -1;
+    for (long long base = 0; base < words; base += QCAP) {
+#pragma unroll
+      for (int e = 0; e < QCAP / 32; ++e) {
+        const long long j = base + lane + 32 * e;
+        const float v = ld_relaxed(region + j);
+        if (v < best) { best = v; at = j; }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+      const long long oa = __shfl_xor_sync(0xffffffffu, at, o);
+      if (ob < best) { best = ob; at = oa; }
+    }
+    if (best >= QTH) return -1;
+    int won = 0;
+    if (lane == 0) won = cas_word(region + at, best, QUEUE_EMPTY);
+    if (__shfl_sync(0xffffffffu, won, 0)) return static_cast<long long>(best);
+  }
+}
+
+// Push `row` with one thread into the first empty slot of `words` words
+// of ready-pool slots, scanning 32 words at a time; false when every slot
+// is taken.
+__device__ __noinline__ bool thread_push(float* region, long long words,
+                                        float row) {
+  for (long long base = 0; base < words; base += 32) {
+    float v[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) v[e] = ld_relaxed(region + base + e);
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      if (v[e] >= QTH && cas_word(region + base + e, QUEUE_EMPTY, row))
+        return true;
+  }
+  return false;
+}
+
+// A worker that popped nothing for the deadline while tasks remain: the
+// plan or the launch is wrong (an event that never triggers, a push that
+// went missing).  The fault goes into the worker's counter block (word 6
+// +1, words 8-11: -1, -1, the ticket seen, -1) and the kernel traps.
+__device__ __noinline__ void pop_fault(float* heap, const Statics& S,
+                                       long long w, float ticket) {
+  float* st = heap + S.stats_off + w * STATS_WORDS;
+  st[6] += 1.0f;
+  st[8] = -1.0f;
+  st[9] = -1.0f;
+  st[10] = ticket;
+  st[11] = -1.0f;
+  __threadfence_system();
+  printf("megakernel: worker %lld popped nothing past its deadline "
+         "(%.0f of %lld tasks done)\n", w, ticket, S.n_tasks);
+  __trap();
+}
+
+// Dynamic scheduler: pop -> wait check -> task -> signal-and-enqueue
+// until all T tasks have been popped.  `c` is in shared memory: thread 32
+// counts the transfers, thread 0 the rest.
+__device__ void dyn_loop(float* heap, const long long* __restrict__ descs,
+                         long long W, const Statics& S, const Smem& sm,
+                         long long w, Counts& c) {
+  __shared__ long long s_row, s_pool;
+  __shared__ int s_src, s_victim, s_done, s_push;
+  __shared__ float s_start;
+  __shared__ unsigned long long s_last_pop;
+  __shared__ unsigned s_backoff;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  float* occ = sm.red;                  // W + 1 occupancies, between tasks
+  if (tid == 0) { s_last_pop = global_ns(); s_backoff = 32; }
+  for (;;) {
+    float* pools = heap + S.qoff;
+    float* over = pools + W * QCAP;
+    float* qc = heap + S.qc_off;
+    __syncthreads();                    // the last round's words are read
+    // own pool (warp 0) beside every pool's occupancy (the rest)
+    if (warp == 0) {
+      const long long r = warp_pop(pools + w * QCAP, QCAP);
+      if (tid == 0) { s_row = r; s_pool = w; s_src = 0; s_victim = 1 << 30; }
+    } else {
+      for (long long i = tid - 32; i <= W; i += NT - 32)
+        occ[i] = ld_relaxed(qc + 2 * i) - ld_relaxed(qc + 2 * i + 1);
+    }
+    __syncthreads();
+    if (s_row < 0) {                    // overflow, then steal
+      for (long long k = tid + 1; k < W; k += NT)
+        if (occ[(w + k) % W] > 0.5f) atomicMin(&s_victim, static_cast<int>(k));
+      __syncthreads();
+      if (warp == 0) {
+        long long r = -1, pool = -1;
+        int src = -1;
+        if (occ[W] > 0.5f) {
+          r = warp_pop(over, S.ov_words);
+          pool = W;
+          src = 1;
+        }
+        if (r < 0 && s_victim < W) {
+          pool = (w + s_victim) % W;
+          r = warp_pop(pools + pool * QCAP, QCAP);
+          src = 2;
+        }
+        if (tid == 0) { s_row = r; s_pool = pool; s_src = src; }
+      }
+      __syncthreads();
+    }
+    // warps 1-2 load the claimed row while thread 0 counts the pop
+    if (s_row >= 0 && tid >= 32 && tid < 32 + DESC_WORDS)
+      sm.d[tid - 32] = descs[s_row * DESC_WORDS + tid - 32];
+    if (tid == 0) {
+      s_done = 0;
+      if (s_row >= 0) {
+        __threadfence();                // the push we saw, then its event
+        atomicAdd(qc + 2 * s_pool + 1, 1.0f);          // popped cursor
+        if (s_src == 0) ++c.own;
+        else if (s_src == 1) ++c.overflow;
+        else ++c.steals;
+        s_last_pop = global_ns();
+        s_backoff = 32;
+      } else {
+        ++c.idle;
+        const float ticket = ld_relaxed(heap + S.ctl_off);
+        if (ticket >= static_cast<float>(S.n_tasks)) {
+          s_done = 1;
+        } else {
+          if (global_ns() - s_last_pop
+              > static_cast<unsigned long long>(S.spin_ns))
+            pop_fault(heap, S, w, ticket);
+          __nanosleep(s_backoff);
+          s_backoff = s_backoff < 1024 ? 2 * s_backoff : 1024;
+        }
+      }
+    }
+    __syncthreads();
+    if (s_done) break;
+    if (s_row < 0) continue;
+    // the task's words stay in shared memory (sm.d, s_row, s_start)
+    // across the task, so that they hold no registers there
+    if (tid == 32) c.task(sm.d, heap, S);   // beside thread 0's wait
+    if (tid == 0) {
+      const long long* d = sm.d;
+      if (d[32] >= 0) wait_event(heap, S, w, s_row, d[32], d[33], c);
+      if (S.tr_off >= 0) s_start = atomicAdd(heap + S.tr_off, 1.0f);
+    }
+    __syncthreads();                    // the wait held
+    run_task(sm.d[0], heap, sm.d, S, sm);
+    __syncthreads();                    // the task's stores landed
+    if (tid == 0) {
+      const long long* d = sm.d;
+      const long long sig_ev = d[34];
+      const float t_end = S.tr_off >= 0 ? atomicAdd(heap + S.tr_off, 1.0f)
+                                        : 0.0f;
+      s_push = -1;
+      if (sig_ev >= 0) {                // release, then maybe enqueue
+        __threadfence();
+        const float old = atomicAdd(heap + S.event_off + sig_ev, 1.0f);
+        ++c.signals;
+        if (old + 1.0f == static_cast<float>(S.sched[sig_ev * S.sched_w]))
+          s_push = static_cast<int>(sig_ev);
+      }
+      // the ticket, taken off the hand-off's path: the pop trace and the
+      // ring are in the order in which tasks completed
+      const long long ticket = static_cast<long long>(
+          atomicAdd(heap + S.ctl_off, 1.0f));
+      if (S.tr_off >= 0)
+        write_record(heap, S, ticket, w, s_row, d[0], s_start, t_end,
+                     static_cast<float>(s_src), d[32], d[33]);
+      heap[S.pt_off + ticket] = static_cast<float>(s_row);
+    }
+    __syncthreads();
+    if (s_push >= 0) {                  // the event fully triggered
+      float* pools = heap + S.qoff;
+      float* over = pools + W * QCAP;
+      float* qc = heap + S.qc_off;
+      const int* ent = S.sched + static_cast<long long>(s_push) * S.sched_w;
+      const int n_out = ent[1];
+      for (int j = tid; j < n_out; j += NT) {
+        const long long cr = ent[2 + j];
+        const long long aw = descs[cr * DESC_WORDS + 35];
+        __threadfence();
+        if (thread_push(pools + aw * QCAP, QCAP, static_cast<float>(cr))) {
+          atomicAdd(qc + 2 * aw, 1.0f);
+        } else if (thread_push(over, S.ov_words, static_cast<float>(cr))) {
+          atomicAdd(qc + 2 * W, 1.0f);
+        } else {
+          __trap();                     // overflow holds every task
+        }
+      }
+    }
+  }
+  __syncthreads();                      // thread 32's counts landed
+}
+
+// One kernel per scheduler: each gets its own register allocation, so
+// the dynamic loop's state costs the static loop nothing (a runtime
+// branch between the two loops in one kernel halved the static loop's
+// matmul rate on the card).
+template <bool DYN>
+__global__ void __launch_bounds__(NT)
+megakernel(float* heap, const long long* __restrict__ descs,
+           long long num_steps, long long num_workers, Statics S) {
+  Smem sm;
+  sm.d = reinterpret_cast<long long*>(smem_raw);
+  sm.scal = reinterpret_cast<float*>(smem_raw + DESC_WORDS * 8);
+  sm.red = reinterpret_cast<float*>(smem_raw + HEAD_BYTES);
+  sm.x = sm.red + RP * NT * VEC;
+  const long long w = blockIdx.x;
+  if constexpr (DYN) {
+    // in shared memory: the loop's state then leaves the tasks all 128
+    // registers (in registers the counters made the matmul spill)
+    __shared__ Counts c;
+    if (threadIdx.x == 0) c.zero();
+    __syncthreads();
+    dyn_loop(heap, descs, num_workers, S, sm, w, c);
+    if (threadIdx.x == 0) c.store(heap, S, w);
+  } else {
+    Counts c;                           // thread 0's
+    c.zero();
+    static_loop(heap, descs, num_steps, num_workers, S, sm, w, c);
+    if (threadIdx.x == 0) c.store(heap, S, w);
   }
 }
 
@@ -573,10 +986,11 @@ size_t smem_bytes(long long tk, long long hd) {
   return HEAD_BYTES + sizeof(float) * (RP * NT * VEC + x_words);
 }
 
-// CTAs of the kernel that can be resident at once on the current device
-// with this much shared memory (0 with the CUDA error in *err).
-long long resident_ctas(size_t smem, cudaError_t* err) {
-  *err = cudaFuncSetAttribute(megakernel,
+// CTAs of the scheduler's kernel that can be resident at once on the
+// current device with this much shared memory (0 with the CUDA error in
+// *err).
+long long resident_ctas(const void* kernel, size_t smem, cudaError_t* err) {
+  *err = cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
   if (*err != cudaSuccess) return 0;
@@ -585,42 +999,70 @@ long long resident_ctas(size_t smem, cudaError_t* err) {
   if ((*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      dev)) != cudaSuccess) return 0;
   if ((*err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, megakernel, NT, smem)) != cudaSuccess) return 0;
+           &per_sm, kernel, NT, smem)) != cudaSuccess) return 0;
   return static_cast<long long>(per_sm) * sms;
+}
+
+const void* kernel_for(bool dyn) {
+  return dyn ? reinterpret_cast<const void*>(megakernel<true>)
+             : reinterpret_cast<const void*>(megakernel<false>);
 }
 
 }  // namespace
 
 // The most workers (CTAs) that can be resident at once for a plan with
-// these statics; negative: minus the CUDA error.
+// these statics, under either scheduler; negative: minus the CUDA error.
 extern "C" long long mk_max_workers(long long tk, long long hd) {
   cudaError_t err;
-  const long long n = resident_ctas(smem_bytes(tk, hd), &err);
-  return err == cudaSuccess ? n : -static_cast<long long>(err);
+  long long n = -1;
+  for (const bool dyn : {false, true}) {
+    const long long k = resident_ctas(kernel_for(dyn), smem_bytes(tk, hd),
+                                      &err);
+    if (err != cudaSuccess) return -static_cast<long long>(err);
+    n = n < 0 || k < n ? k : n;
+  }
+  return n;
 }
 
-// One launch: `num_workers` CTAs walk the (num_steps, num_workers)
-// descriptor grid against the heap on `stream`, all resident at once (a
-// cooperative launch; a grid that cannot be co-resident is refused with
-// ERR_NOT_RESIDENT before anything runs).  `tr_off` < 0: no trace ring.
-// Returns the CUDA error of the launch (0 on success).
+// One launch of `num_workers` CTAs against the heap on `stream`, all
+// resident at once (a cooperative launch; a grid that cannot be
+// co-resident is refused with ERR_NOT_RESIDENT before anything runs).
+// Static scheduler (`dyn` 0): the CTAs walk the (num_steps, num_workers)
+// descriptor grid.  Dynamic scheduler (`dyn` 1): they pop the T =
+// `n_tasks` rows of the flat table from the ready pools at `qoff`
+// (`ov_words` words of overflow after the W pools), with the cursor
+// pairs at `qc_off`, the pop trace at `pt_off`, the ticket at
+// `ctl_off` and the (events, `sched_w`) int32 scheduler table `sched`.
+// `tr_off` < 0: no trace ring.  Returns the CUDA error of the launch (0
+// on success).
 extern "C" int mk_launch(float* heap, const long long* descs,
                          long long num_steps, long long num_workers,
                          long long tn, long long tk, long long hd,
                          long long g, long long store_ch,
                          long long stats_off, long long event_off,
                          long long tr_off, long long spin_ns, double theta,
+                         long long ng, long long s_max, long long dyn,
+                         const int* sched, long long sched_w,
+                         long long qoff, long long ov_words,
+                         long long qc_off, long long pt_off,
+                         long long ctl_off, long long n_tasks,
                          void* stream) {
+  const int tkc = static_cast<int>(tk < 8 ? 8 : (tk > 128 ? 128 : tk));
+  const int ts = static_cast<int>(s_max < 128 ? s_max : 128);
   Statics S{tn, tk, hd, g, store_ch, stats_off, event_off, tr_off, spin_ns,
-            static_cast<float>(theta)};
+            static_cast<float>(theta), ng, tkc,
+            static_cast<int>((tk + tkc - 1) / tkc), ts,
+            static_cast<int>((s_max + ts - 1) / ts), dyn, sched, sched_w,
+            qoff, ov_words, qc_off, pt_off, ctl_off, n_tasks};
   const size_t smem = smem_bytes(tk, hd);
+  const void* kernel = kernel_for(dyn != 0);
   cudaError_t err;
-  const long long resident = resident_ctas(smem, &err);
+  const long long resident = resident_ctas(kernel, smem, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_workers < 1 || num_workers > resident) return ERR_NOT_RESIDENT;
   void* args[] = {&heap, &descs, &num_steps, &num_workers, &S};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(megakernel),
+      kernel,
       dim3(static_cast<unsigned>(num_workers)), dim3(NT), args, smem,
       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);

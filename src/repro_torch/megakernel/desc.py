@@ -17,9 +17,13 @@ What differs from the reference:
   (sign-extended);
 * ``build_heap`` writes into a device tensor one binding at a time and
   never builds a host-side image of the heap;
-* the dynamic scheduler and the multichip stamp are later slices: asking
-  for them raises ``NotImplementedError``, as do the task kinds of the
-  MoE and SSM families.
+* a dynamic plan ends in ``CTL_WORDS`` port-only control words after
+  the reference's heap (at ``ctl_offset``: word 0 is the ticket the CUDA
+  kernel takes per completed task), so that everything before them keeps
+  the reference's layout;
+* the multichip stamp is a later slice: asking for it raises
+  ``NotImplementedError``, as do the task kinds of the MoE and SSM
+  families.
 
 Descriptor words (per kind, see ``lower_tgraph``):
    0 kind   1 m      2 n      3 k      4 out_off 5 ldo
@@ -30,10 +34,12 @@ Descriptor words (per kind, see ``lower_tgraph``):
   reference plans them; the port's kernel reads and ignores them),
   28-30 the task's own primary tile record (off, ld, rows),
   32 wait event (-1: none), 33 its trigger count, 34 signalled event
-  (-1: none), 35 affinity (0).
+  (-1: none), 35 affinity (the dynamic scheduler's pool for the task;
+  0 under the static scheduler).
 
-The descriptor grid is ``(num_steps * W, DESC_WORDS)``: row ``s * W + w``
-is worker ``w``'s task at step ``s`` (a noop where the worker idles).
+Static scheduler: the descriptor grid is ``(num_steps * W,
+DESC_WORDS)``: row ``s * W + w`` is worker ``w``'s task at step ``s`` (a
+noop where the worker idles).
 The heap tail carries, in this order, the event table (one counter per
 event with a cross-worker consumer, at ``event_offset``), one
 ``STATS_WORDS`` counter block per worker (at ``stats_offset``) and, with
@@ -41,6 +47,16 @@ event with a cross-worker consumer, at ``event_offset``), one
 whose word 0 is the tick counter, then one ``TRACE_WORDS`` record per
 grid slot).  The ring comes last so that the trace-off layout is
 bitwise identical.
+
+Dynamic scheduler (``scheduler="dynamic"``, protocol in
+``runtime/dyn_sched.py``): the table is flat, one row per task in
+linearized order (the row id is the pop priority), and the heap tail
+holds the event table (every event with producers and consumers), the
+ready pools (``QUEUE_CAP`` words per worker, then the overflow queue),
+the [pushed, popped] cursor pair of each pool, the pop trace (one word
+per slot of the reference's ``(num_steps, W)`` grid: the row of ticket
+``i``), the counter blocks, the optional ring and the control
+words.
 """
 from __future__ import annotations
 
@@ -55,8 +71,9 @@ from ..core.compile import CompiledTGraph
 from ..core.graph import OpKind
 
 __all__ = ["KIND_CODES", "DESC_WORDS", "STATS_WORDS", "TRACE_WORDS",
-           "TRACE_HEADER", "PER_STEP_INPUTS", "TensorSlot", "MegakernelPlan",
-           "lower_tgraph", "stamp_multichip"]
+           "TRACE_HEADER", "CTL_WORDS", "PER_STEP_INPUTS", "TensorSlot",
+           "MegakernelPlan", "lower_tgraph", "dynamic_tail",
+           "stamp_multichip"]
 
 #: graph inputs that change every decode step — everything else in the heap
 #: (weights, caches) is uploaded once and lives on the device
@@ -68,12 +85,17 @@ DESC_WORDS = 36
 #: counters, the reference's layout: [0] tile transfers, [1] rows in them
 #: (2^20-unit spill in [4]), [2] prefetched tiles, [3] primary tiles
 #: demand-loaded, [5]-[7] event waits / violations / signals, [8]-[11]
-#: dynamic-scheduler pops (zero under the static scheduler)
+#: dynamic-scheduler pops from the worker's own pool, from overflow, by
+#: steal, and idle (zero under the static scheduler).  Word 11 is the
+#: plain version's count of idle grid slots, as in the reference; the
+#: CUDA kernel, which has no grid, counts its polls that found every
+#: pool empty there instead
 STATS_WORDS = 12
 
 #: float32 words PER GRID SLOT in the optional trace ring: [0] worker,
 #: [1] descriptor row, [2] kind code, [3] start tick, [4] end tick,
-#: [5] pop source (-1 under the static scheduler), [6] the wait's trigger
+#: [5] pop source (0 own pool, 1 overflow, 2 steal; -1 under the static
+#: scheduler and for an idle slot), [6] the wait's trigger
 #: count (0 when the slot waits on nothing), [7] 0
 TRACE_WORDS = 8
 
@@ -81,6 +103,12 @@ TRACE_WORDS = 8
 #: global tick counter the kernel fetch-and-increments, the rest pads the
 #: records to ``TRACE_WORDS`` alignment
 TRACE_HEADER = 8
+
+#: port-only words after a dynamic plan's reference layout: [0] the
+#: ticket (one fetch-and-add per completed task on the card: the index of
+#: the pop-trace entry and ring record the task writes, and T once every
+#: task has run)
+CTL_WORDS = 1
 
 KIND_CODES = {
     "noop": 0,
@@ -143,7 +171,7 @@ class MegakernelPlan:
     half (resident heap, launches) is ``ops.MegakernelExecutor``."""
 
     compiled: CompiledTGraph
-    descs: np.ndarray                 # (num_steps * W, DESC_WORDS) int64
+    descs: np.ndarray                 # (rows, DESC_WORDS) int64
     layout: Dict[str, TensorSlot]
     heap_size: int
     statics: Dict[str, Any]           # compile-time kernel parameters
@@ -154,6 +182,16 @@ class MegakernelPlan:
     num_events: int = 0
     trace: bool = False               # the trace ring is in the heap
     ring_offset: int = 0              # heap offset of the ring (0: off)
+    scheduler: str = "static"         # "static" | "dynamic"
+    dyn: Any = None                   # runtime.dyn_sched.DynSchedPlan
+    queue_offset: int = 0             # ready pools, then overflow
+    qc_offset: int = 0                # [pushed, popped] per pool
+    trace_offset: int = 0             # pop trace
+    ctl_offset: int = 0               # port-only control words
+
+    @property
+    def dynamic(self) -> bool:
+        return self.scheduler == "dynamic"
 
     def pipeline_stats(self) -> Dict[str, Any]:
         """Scheduler stalls plus the prefetch plan's coverage over the
@@ -379,11 +417,12 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
                  tn: Optional[int] = None,
                  scheduler: str = "static",
                  trace: bool = False) -> MegakernelPlan:
-    """Lower a compiled decode graph to the static W-worker plan; with
-    ``trace`` the heap ends in the trace ring."""
-    if scheduler != "static":
-        raise NotImplementedError(
-            f"scheduler={scheduler!r}: only the static scheduler is ported")
+    """Lower a compiled decode graph to the static W-worker plan or, with
+    ``scheduler="dynamic"``, to the ready-pool plan; with ``trace`` the
+    heap holds the trace ring."""
+    if scheduler not in ("static", "dynamic"):
+        raise ValueError(f"unknown scheduler {scheduler!r}; "
+                         "expected 'static' or 'dynamic'")
     g = compiled.graph
     tg = compiled.tg
 
@@ -537,6 +576,9 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
                                int(descs[mm, 3].max(initial=1))))
 
     part = compiled.partition
+    if scheduler == "dynamic":
+        return _lower_dynamic(compiled, descs, layout, heap_size, statics,
+                              part, trace)
     W = part.num_workers
     num_steps = part.num_steps
     grid = np.zeros((num_steps * W, DESC_WORDS), np.int64)
@@ -562,6 +604,86 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
     return MegakernelPlan(compiled, grid, layout, heap_size, statics,
                           stats_offset, W, num_steps, event_offset,
                           num_events, trace, ring_offset)
+
+
+def _lower_dynamic(compiled: CompiledTGraph, descs: np.ndarray,
+                   layout: Dict[str, TensorSlot], heap_size: int,
+                   statics: Dict[str, Any], part,
+                   trace: bool = False) -> MegakernelPlan:
+    """Finish the lowering for ``scheduler="dynamic"`` as the reference
+    does: keep the flat per-task table in linearized order (row id ==
+    position, the pop priority), stamp every row's primary record, event
+    wait and signal words and affinity, and append the ready-pool
+    regions to the heap.  No prefetch plan: which task a worker runs
+    next is decided at run time, so every task demand-loads its primary
+    tile.  The port-only control words come after the reference's
+    heap."""
+    from ..runtime.dyn_sched import build_dyn_sched
+
+    dyn = build_dyn_sched(compiled, part)
+    W = dyn.num_workers
+    T = dyn.num_tasks
+    assert descs.shape[0] == T
+
+    for row in range(T):
+        rec = _primary_record(descs[row])
+        if rec is not None:
+            descs[row, 28:31] = rec
+        descs[row, 35] = dyn.affinity[row]
+        e = int(dyn.wait_ev[row])
+        if e >= 0:
+            descs[row, 32] = e
+            descs[row, 33] = dyn.trigger[e]
+        descs[row, 34] = dyn.sig_ev[row]
+
+    tail = dynamic_tail(dyn, heap_size, trace)
+    statics.update(tail["statics"])
+    heap_size = tail["heap_size"]
+    return MegakernelPlan(compiled, descs, layout, heap_size, statics,
+                          tail["stats_offset"], W, tail["num_steps"],
+                          tail["event_offset"], dyn.num_events, trace,
+                          tail["ring_offset"], scheduler="dynamic", dyn=dyn,
+                          queue_offset=tail["queue_offset"],
+                          qc_offset=tail["qc_offset"],
+                          trace_offset=tail["trace_offset"],
+                          ctl_offset=tail["ctl_offset"])
+
+
+def dynamic_tail(dyn, heap_size: int, trace: bool = False
+                 ) -> Dict[str, Any]:
+    """The heap regions a dynamic plan appends after ``heap_size`` words,
+    in the reference's order (event table, pools and overflow, cursor
+    pairs, pop trace, counter blocks, optional ring), then the port's
+    control words: their offsets, the kernel statics that name them and
+    the new heap size."""
+    from ..runtime.dyn_sched import QUEUE_CAP
+
+    W, T = dyn.num_workers, dyn.num_tasks
+    num_steps = -(-T // W)             # the reference's pop slots per worker
+    out: Dict[str, Any] = {"num_steps": num_steps, "ring_offset": 0}
+    for name, words in (("event_offset", dyn.num_events),
+                        ("queue_offset", W * QUEUE_CAP + dyn.overflow_cap),
+                        ("qc_offset", 2 * (W + 1)),
+                        ("trace_offset", num_steps * W),
+                        ("stats_offset", STATS_WORDS * W)):
+        out[name] = heap_size
+        heap_size += words
+    if trace:
+        out["ring_offset"] = heap_size
+        heap_size += TRACE_HEADER + num_steps * W * TRACE_WORDS
+    out["ctl_offset"] = heap_size
+    out["heap_size"] = heap_size + CTL_WORDS
+    out["statics"] = {
+        "W": W, "NUM_STEPS": num_steps, "EVENT_OFF": out["event_offset"],
+        "N_EVENTS": dyn.num_events, "STATS_OFF": out["stats_offset"],
+        "DYN": 1, "QOFF": out["queue_offset"], "QCAP": QUEUE_CAP,
+        "OV_ROWS": dyn.overflow_cap // QUEUE_CAP,
+        "QC_OFF": out["qc_offset"], "TRACE_OFF": out["trace_offset"],
+        "T_TASKS": T, "MAX_OUT": dyn.max_out, "CTL_OFF": out["ctl_offset"],
+    }
+    if trace:
+        out["statics"].update({"TRACE": 1, "TR_OFF": out["ring_offset"]})
+    return out
 
 
 def stamp_multichip(plan: MegakernelPlan, n_chips: int) -> MegakernelPlan:

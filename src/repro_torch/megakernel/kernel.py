@@ -1,22 +1,31 @@
 """The decode megakernel's wrapper, its launch count, and its plain
 PyTorch version.
 
-``megakernel(heap, descs, statics)`` runs one decode step: every row of
-the ``(num_steps * W, 36)`` descriptor grid against the float32 heap, in
-place.  For a heap on the card it launches the hand-written CUDA kernel
+``megakernel(heap, descs, statics, sched)`` runs one decode step against
+the float32 heap, in place: every row of the ``(num_steps * W, 36)``
+descriptor grid under the static scheduler, or every row of the flat
+task table popped from the heap's ready pools under the dynamic one
+(``statics["DYN"]``, with the scheduler table ``sched``).  For a heap on
+the card it launches the hand-written CUDA kernel
 (``csrc/megakernel.cu``, built by ``build.py``), one CTA per worker, and
 adds one to the launch count; for a heap on the CPU it runs
 ``megakernel_plain``, and on any other device it raises.  It replaces
 the Pallas megakernel of the JAX package
-(``repro/kernels/megakernel/kernel.py`` ``make_megakernel``) for the
-static W-worker scheduler and the dense task kinds, with its event
-counters and trace ring.
+(``repro/kernels/megakernel/kernel.py`` ``make_megakernel``) for both
+schedulers and the dense task kinds, with its event counters and trace
+ring.
 
-``megakernel_plain`` is a Python loop over the same descriptor rows, in
-grid order ``s * W + w``, that runs each kind with torch ops on views of
-the heap.  The partition makes that order legal: every dependency
-crosses a step.  It computes what the kernel computes (same tiles, same
-masked store widths, same counters, the same trace records) on any
+``megakernel_plain`` is a Python loop over the reference's grid slots,
+step-major and worker-fastest, that runs each kind with torch ops on
+views of the heap.  Under the static scheduler slot ``s * W + w`` runs
+grid row ``s * W + w``; the partition makes that order legal, since
+every dependency crosses a step.  Under the dynamic scheduler slot
+``s * W + w`` pops for worker ``w`` as the reference's interpret grid
+does (own pool, then overflow, then the first non-empty victim in
+``(w + k) % W`` order; the minimum row id; first-empty pushes that
+spill to overflow), so its heap after a step equals the reference's in
+every integer word.  It computes what the kernel computes (same tiles,
+same masked store widths, same counters, the same trace records) on any
 device, and handles the event words as the reference's interpret mode
 does: a waited counter must already equal its trigger count, or the wait
 counts a violation.  The CPU tests run it, and ``chip_smoke.py`` holds
@@ -24,12 +33,13 @@ the kernel against it on the card.  Nothing on the main path calls it.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..runtime.dyn_sched import QUEUE_CAP, QUEUE_EMPTY
 from .desc import DESC_WORDS, STATS_WORDS, TRACE_HEADER, TRACE_WORDS
 
 __all__ = ["megakernel", "megakernel_plain", "launch_count",
@@ -49,6 +59,10 @@ MAX_TK = 26880
 #: decode step at W = 1 takes under 0.4 s on an H100.
 SPIN_TIMEOUT_S = 5.0
 
+#: the dynamic kernel keeps the W + 1 pool occupancies of a poll in the
+#: matmul's reduction scratch (2 · 512 · 4 words)
+MAX_DYN_WORKERS = 4095
+
 _ROW_SPILL = 1 << 20
 _LAUNCHES = 0
 
@@ -66,7 +80,16 @@ def reset_launch_count() -> None:
 def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
     """Raise for a plan the CUDA kernel's tiling cannot run: tiles wider
     than ``MAX_TN``, deeper than ``MAX_TK`` or with heads wider than
-    ``MAX_HD``, or matmul weights not addressable as float4."""
+    ``MAX_HD``, matmul weights not addressable as float4, or a dynamic
+    plan whose pools are not one warp's 128 words, whose row ids are not
+    exact in float32 or whose W + 1 pool occupancies do not fit the
+    kernel's scratch."""
+    if statics.get("DYN"):
+        if statics["QCAP"] != QUEUE_CAP or statics["T_TASKS"] >= 1 << 24 \
+                or statics["W"] >= MAX_DYN_WORKERS:
+            raise NotImplementedError(
+                f"dynamic plan with QCAP={statics['QCAP']}, "
+                f"T={statics['T_TASKS']}, W={statics['W']}")
     if statics["TN"] > MAX_TN or statics["TK"] > MAX_TK:
         raise NotImplementedError(
             f"tile TN={statics['TN']} TK={statics['TK']} exceeds "
@@ -104,14 +127,24 @@ def check_workers(statics: Mapping[str, Any], device=None) -> None:
 
 
 def megakernel(heap: torch.Tensor, descs: torch.Tensor,
-               statics: Mapping[str, Any]) -> None:
-    """One decode step: run the descriptor table ``descs`` ((steps · W,
-    36) int64, on the heap's device) against ``heap`` (flat float32) in
-    place.  The event counters and the tick must be zero (the executor
-    zeroes them with the step's inputs).  A table for the card must pass
+               statics: Mapping[str, Any],
+               sched: Optional[torch.Tensor] = None) -> None:
+    """One decode step: run the descriptor table ``descs`` ((rows, 36)
+    int64, on the heap's device) against ``heap`` (flat float32) in
+    place.  The event counters and the tick must be zero, and under the
+    dynamic scheduler the pools, cursors and ticket must hold the
+    initial queue image (the executor writes all of them with the step's
+    inputs); ``sched`` is then the plan's (events, 2 + max_out) int32
+    scheduler table on the same device.  A table for the card must pass
     ``check_plan``; a W that cannot be resident at once is refused before
     anything runs."""
     global _LAUNCHES
+    dyn = bool(statics.get("DYN"))
+    if dyn and (sched is None or sched.dtype != torch.int32
+                or sched.dim() != 2 or not sched.is_contiguous()
+                or sched.device != heap.device):
+        raise ValueError("a dynamic plan needs its scheduler table: a "
+                         "contiguous 2-D int32 tensor on the heap's device")
     if heap.dtype != torch.float32 or heap.dim() != 1 \
             or not heap.is_contiguous():
         raise ValueError("heap must be a contiguous 1-D float32 tensor")
@@ -122,7 +155,7 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
     if descs.device != heap.device:
         raise ValueError("heap and descs must be on one device")
     if heap.device.type == "cpu":
-        megakernel_plain(heap, descs, statics)
+        megakernel_plain(heap, descs, statics, sched)
         return
     if heap.device.type != "cuda":
         raise ValueError(f"no megakernel for device {heap.device}")
@@ -132,13 +165,23 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
     with torch.cuda.device(heap.device):
         stream = torch.cuda.current_stream(heap.device).cuda_stream
         err = lib.mk_launch(heap.data_ptr(), descs.data_ptr(),
-                            descs.shape[0] // W, W, statics["TN"],
+                            0 if dyn else descs.shape[0] // W, W,
+                            statics["TN"],
                             statics["TK"], statics["HD"], statics["G"],
                             statics["STORE_CH"], statics["STATS_OFF"],
                             statics["EVENT_OFF"],
                             statics["TR_OFF"] if statics.get("TRACE")
                             else -1, int(SPIN_TIMEOUT_S * 1e9),
-                            float(statics["THETA"]), stream)
+                            float(statics["THETA"]), statics.get("NG", 1),
+                            statics.get("S_MAX", 1), int(dyn),
+                            sched.data_ptr() if dyn else None,
+                            sched.shape[1] if dyn else 0,
+                            statics.get("QOFF", 0),
+                            statics.get("OV_ROWS", 0) * QUEUE_CAP,
+                            statics.get("QC_OFF", 0),
+                            statics.get("TRACE_OFF", 0),
+                            statics.get("CTL_OFF", 0),
+                            statics.get("T_TASKS", 0), stream)
     if err != 0:
         raise RuntimeError("megakernel launch failed: "
                            + lib.mk_error_string(err).decode())
@@ -162,18 +205,100 @@ def _act(y: torch.Tensor, act_id: int) -> torch.Tensor:
     return y
 
 
+class _PlainPools:
+    """The dynamic scheduler's ready pools, cursors and pop trace as the
+    plain version keeps them during a step: numpy copies of the heap's
+    words, written back once (only this loop touches them).  Pops take
+    the minimum row id, pushes the first empty slot, as the reference's
+    interpret grid does."""
+
+    def __init__(self, heap, statics, rows_list, sched):
+        self.W = W = statics["W"]
+        self.q0 = statics["QOFF"]
+        n = (W + statics["OV_ROWS"]) * QUEUE_CAP
+        self.words = heap[self.q0:self.q0 + n].cpu().numpy().copy()
+        self.qc0 = statics["QC_OFF"]
+        self.qc = heap[self.qc0:self.qc0 + 2 * (W + 1)].cpu().numpy() \
+            .astype(np.int64)
+        self.sched = (sched.cpu().numpy() if isinstance(sched, torch.Tensor)
+                      else np.asarray(sched))
+        self.affinity = [d[35] for d in rows_list]
+        self.pt0 = statics["TRACE_OFF"]
+        self.pop_trace = np.full((statics["NUM_STEPS"] * W,), QUEUE_EMPTY,
+                                 np.float32)
+        self.ctl = statics["CTL_OFF"]
+
+    def _region(self, p: int) -> np.ndarray:
+        if p < self.W:
+            return self.words[p * QUEUE_CAP:(p + 1) * QUEUE_CAP]
+        return self.words[self.W * QUEUE_CAP:]
+
+    def _take(self, p: int) -> Optional[int]:
+        seg = self._region(p)
+        j = int(np.argmin(seg))
+        if seg[j] >= QUEUE_EMPTY / 2:
+            return None
+        row = int(seg[j])
+        seg[j] = QUEUE_EMPTY
+        self.qc[2 * p + 1] += 1
+        return row
+
+    def pop(self, w: int):
+        """(row, source) for worker ``w``: own pool (0), overflow (1),
+        then steal (2) from the first non-empty victim; None if all are
+        empty."""
+        for src, p in [(0, w), (1, self.W)] + \
+                [(2, (w + k) % self.W) for k in range(1, self.W)]:
+            row = self._take(p)
+            if row is not None:
+                return row, src
+        return None
+
+    def push(self, row: int) -> None:
+        for p in (self.affinity[row], self.W):
+            seg = self._region(p)
+            free = np.flatnonzero(seg >= QUEUE_EMPTY / 2)
+            if free.size:
+                seg[free[0]] = row
+                self.qc[2 * p] += 1
+                return
+        raise AssertionError("the overflow queue holds every task")
+
+    def signal(self, e: int, count: int) -> None:
+        """Push the consumers of event ``e`` when ``count`` reached its
+        trigger count."""
+        ent = self.sched[e]
+        if count == ent[0]:
+            for c in ent[2:2 + ent[1]]:
+                self.push(int(c))
+
+    def store(self, heap, pops: int) -> None:
+        dev = heap.device
+        heap[self.q0:self.q0 + self.words.size] = \
+            torch.from_numpy(self.words).to(dev)
+        heap[self.qc0:self.qc0 + self.qc.size] = \
+            torch.from_numpy(self.qc.astype(np.float32)).to(dev)
+        heap[self.pt0:self.pt0 + self.pop_trace.size] = \
+            torch.from_numpy(self.pop_trace).to(dev)
+        heap[self.ctl] += float(pops)
+
+
 def megakernel_plain(heap: torch.Tensor, descs,
-                     statics: Mapping[str, Any]) -> None:
-    """The kernel's function with torch ops, one descriptor row at a time
-    in grid order (row ``s * W + w``).
+                     statics: Mapping[str, Any], sched=None) -> None:
+    """The kernel's function with torch ops, one grid slot at a time in
+    the reference's order (slot ``s * W + w``): the static grid's row
+    ``s * W + w``, or under the dynamic scheduler the row that worker
+    ``w`` pops there (``sched``: the plan's scheduler table).
 
     Every store writes the kernel's masked width: the valid columns
     rounded up to ``STORE_CH`` chunks, capped at ``TN`` (the tail chunk
     overhangs only into the row slot's zero padding).  Each slot, noops
     included, checks its wait (the counter must already be at its
-    trigger count), runs its task, signals its event and, with the trace
-    ring on, records its two ticks.  The per-worker counter blocks get
-    the same counts the kernel writes."""
+    trigger count), runs its task, signals its event (pushing the
+    consumers of an event it completes) and, with the trace ring on,
+    records its two ticks; a dynamic slot that pops nothing idles, and
+    records row and kind -1.  The per-worker counter blocks get the same
+    counts the kernel writes (word 11: the idle slots)."""
     rows_list = (descs.tolist() if isinstance(descs, torch.Tensor)
                  else np.asarray(descs).tolist())
     TN, HD, G = statics["TN"], statics["HD"], statics["G"]
@@ -200,12 +325,31 @@ def megakernel_plain(heap: torch.Tensor, descs,
     trace = bool(statics.get("TRACE"))
     tr_off = statics.get("TR_OFF", 0)
     tick = int(heap[tr_off].item()) if trace else 0
-    ring = np.zeros((len(rows_list), TRACE_WORDS), np.float32)
+    pools = None
+    n_slots = len(rows_list)
+    if statics.get("DYN"):
+        pools = _PlainPools(heap, statics, rows_list, sched)
+        n_slots = statics["NUM_STEPS"] * W
+    ring = np.zeros((n_slots, TRACE_WORDS), np.float32)
     counts = np.zeros((W, STATS_WORDS), np.int64)
+    pops = 0
 
-    for i, d in enumerate(rows_list):
+    for i in range(n_slots):
         w = i % W
         cnt = counts[w]
+        row, src = i, -1
+        if pools is not None:
+            got = pools.pop(w)
+            if got is None:             # idle slot
+                cnt[11] += 1
+                ring[i] = (w, -1, -1, tick, tick + 1, -1, 0, 0)
+                tick += 2
+                continue
+            row, src = got
+            cnt[8 + src] += 1
+            pools.pop_trace[i] = row
+            pops += 1
+        d = rows_list[row]
         if d[32] >= 0:                  # wait: must already hold
             cnt[5] += 1
             cnt[6] += events[d[32]] != d[33]
@@ -216,19 +360,23 @@ def megakernel_plain(heap: torch.Tensor, descs,
                 cnt[0] += 1
                 cnt[1] += d[30]
                 cnt[3] += 1
-            cnt[0] += d[1] if d[0] in (7, 8) else 1
-            cnt[1] += d[1]
+            n, r = _operand_transfers(d, statics, scalar)
+            cnt[0] += n
+            cnt[1] += r
             _run_task(d, tile, width, scalar, heap, TN, HD, G, half,
                       inv_freq)
-        ring[i] = (w, i, d[0], t_start, tick, -1,
+        ring[i] = (w, row, d[0], t_start, tick, src,
                    d[33] if d[32] >= 0 else 0, 0)
         tick += 1
-        if d[34] >= 0:                  # signal
+        if d[34] >= 0:                  # signal (and enqueue)
             events[d[34]] += 1
             cnt[7] += 1
+            if pools is not None:
+                pools.signal(d[34], events[d[34]])
 
     stats = np.zeros((W, STATS_WORDS), np.float32)
-    stats[:, [0, 3, 5, 6, 7]] = counts[:, [0, 3, 5, 6, 7]]
+    stats[:, [0, 3, 5, 6, 7, 8, 9, 10, 11]] = \
+        counts[:, [0, 3, 5, 6, 7, 8, 9, 10, 11]]
     stats[:, 1] = counts[:, 1] % _ROW_SPILL
     stats[:, 4] = counts[:, 1] // _ROW_SPILL
     off = statics["STATS_OFF"]
@@ -237,11 +385,54 @@ def megakernel_plain(heap: torch.Tensor, descs,
     if n_ev:
         heap[ev_off:ev_off + n_ev] = torch.tensor(
             events, dtype=heap.dtype, device=heap.device)
+    if pools is not None:
+        pools.store(heap, pops)
     if trace:
         heap[tr_off] = float(tick)
         base = tr_off + TRACE_HEADER
         heap[base:base + ring.size] = \
             torch.from_numpy(ring.ravel()).to(heap.device)
+
+
+def _operand_transfers(d, statics, scalar):
+    """(tile transfers, rows in them) of one task's operands and results
+    other than its primary tile, as the reference's kernel counts its
+    bulk copies: the matmul's A and B tiles per ``TKC``-deep chunk, the
+    bias, norm-weight, position, lengths and second-operand rows, the
+    attention's K and V tiles per (row, group, ``TS``-position chunk)
+    holding live positions, and the stores.  The CUDA kernel counts the
+    same (``Counts::operands``)."""
+    code, m = d[0], d[1]
+    if code == 1:                       # KCH chunks of TKC rows of K
+        tk = statics["TK"]
+        tkc = min(128, max(8, tk))
+        kch = -(-tk // tkc)
+        nb = min(kch, -(-d[3] // tkc)) if d[3] > 0 else 0
+        n = (kch - 1) + nb + (1 if d[10] >= 0 else 0) + 1
+        return n, (kch - 1) * m + min(d[3], kch * tkc) \
+            + (1 if d[10] >= 0 else 0) + m
+    if code == 2:
+        return 2, 1 + m
+    if code in (3, 4):
+        return 2, 2 * m
+    if code == 5:
+        return (2, 2 * m) if d[8] >= 0 else (1, m)
+    if code == 6:                       # SCH chunks of TS cache rows
+        s_max, ng = statics["S_MAX"], statics["NG"]
+        ts = min(128, s_max)
+        sch = -(-s_max // ts)
+        n, r = 1 + m, 1 + m
+        for row in range(m):
+            live = scalar(d[12] + row)
+            if live > 0:
+                n += 2 * ng * min(sch, -(-live // ts))
+                r += 2 * ng * min(live, sch * ts)
+        return n, r
+    if code == 7:
+        return 1 + m, 1 + m
+    if code == 8:
+        return 2 * m, 2 * m
+    return 0, 0
 
 
 def _run_task(d, tile, width, scalar, heap, TN, HD, G, half, inv_freq):

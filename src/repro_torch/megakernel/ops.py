@@ -15,11 +15,17 @@ live program, as the reference's executor does:
   writes zeros over the event table and the trace ring's tick counter:
   the kernel counts both up during a launch, and a launch that found its
   counters at their trigger counts would let every wait pass before its
-  producers ran.
+  producers ran.  Under the dynamic scheduler it also rewrites the
+  initial queue image (pools, overflow, [pushed, popped] pairs), which a
+  launch consumes, and zeroes the ticket: still one host operation
+  and one launch per step;
+* a dynamic plan's scheduler table goes to the device once, and so do
+  the idle entries of its pop trace and ring (the slots past T of the
+  reference's grid, which the kernel never writes).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -29,8 +35,9 @@ from ..core.decompose import DecomposeConfig
 from ..core.lowering import build_decode_graph
 from ..device import resolve_device
 from ..models.lm import fill_params
-from .desc import (STATS_WORDS, TRACE_HEADER, TRACE_WORDS, MegakernelPlan,
-                   lower_tgraph)
+from ..runtime.dyn_sched import QUEUE_EMPTY
+from .desc import (CTL_WORDS, STATS_WORDS, TRACE_HEADER, TRACE_WORDS,
+                   MegakernelPlan, lower_tgraph)
 from .kernel import check_plan, check_workers, megakernel
 
 __all__ = ["compile_decode_megakernel", "MegakernelExecutor",
@@ -75,16 +82,23 @@ def read_stats_block(heap: torch.Tensor, stats_offset: int,
 
 def compile_decode_megakernel(cfg, batch: int, max_seq: int,
                               *, num_workers: int = 1,
+                              scheduler: str = "static",
                               trace: bool = False) -> MegakernelPlan:
     """Lower cfg's decode step: op graph → tGraph → descriptors, with the
     reference's default compile options (tile rows capped at 8, the
     megakernel's TM).  ``num_workers`` is the W the partitioner may use
     (it picks the width with the least estimated makespan, at most W);
-    ``trace`` adds the trace ring to the heap."""
+    ``scheduler`` is "static" (per-worker descriptor streams) or
+    "dynamic" (the ready pools of ``runtime/dyn_sched.py``, with the
+    partition as the affinity hint); ``trace`` adds the trace ring to
+    the heap.  ``lower_tgraph(plan.compiled, cfg, scheduler=...)`` lowers
+    the other scheduler's plan from the same compiled graph."""
     g = build_decode_graph(cfg, batch, max_seq)
     opts = CompileOptions(decompose=DecomposeConfig(max_rows=8),
-                          num_workers=num_workers, trace=trace)
-    return lower_tgraph(megakernelize(g, opts), cfg, trace=trace)
+                          num_workers=num_workers, scheduler=scheduler,
+                          trace=trace)
+    return lower_tgraph(megakernelize(g, opts), cfg, scheduler=scheduler,
+                        trace=trace)
 
 
 class MegakernelExecutor:
@@ -121,12 +135,28 @@ class MegakernelExecutor:
                     + np.arange(cols)[None, :])
             self._entries.append((name, slot.rows * cols))
             idx.append(grid.ravel())
-        # counters the kernel counts up, zeroed before every launch
-        self._n_zero = plan.num_events + (1 if plan.trace else 0)
+        # counters the kernel counts up, zeroed before every launch, and
+        # under the dynamic scheduler the queue image it consumes
+        tail = [np.zeros((plan.num_events,), np.float32)]
         idx.append(np.arange(plan.event_offset,
                              plan.event_offset + plan.num_events))
+        self._sched = None
+        if plan.dynamic:
+            pools, cursors = plan.dyn.queue_image()
+            image = np.concatenate([pools, cursors])
+            tail.append(image)
+            idx.append(np.arange(plan.queue_offset,
+                                 plan.queue_offset + image.size))
+            self._sched = torch.from_numpy(plan.dyn.sched_table()) \
+                .to(self.device)
         if plan.trace:
+            tail.append(np.zeros((1,), np.float32))
             idx.append(np.array([plan.ring_offset]))
+        if plan.dynamic:
+            tail.append(np.zeros((CTL_WORDS,), np.float32))
+            idx.append(np.arange(plan.ctl_offset,
+                                 plan.ctl_offset + CTL_WORDS))
+        self._tail = np.concatenate(tail)
         self._upd_idx = torch.from_numpy(
             np.concatenate(idx).astype(np.int64)).to(self.device)
         self._descs = torch.from_numpy(plan.descs).to(self.device)
@@ -134,9 +164,27 @@ class MegakernelExecutor:
 
     # ------------------------------------------------------------ the heap
     def upload(self, heap: torch.Tensor) -> None:
-        """Adopt a full heap (weights included): once per ``bind``."""
+        """Adopt a full heap (weights included): once per ``bind``.  A
+        dynamic plan's idle pop-trace and ring entries are written here,
+        as the reference's grid leaves them."""
         self.heap = heap.to(self.device)
         self.upload_count += 1
+        plan = self.plan
+        if plan.dynamic:
+            T, W = plan.dyn.num_tasks, plan.num_workers
+            slots = plan.num_steps * W
+            self.heap[plan.trace_offset + T:plan.trace_offset + slots] = \
+                QUEUE_EMPTY
+            if plan.trace:
+                i = np.arange(T, slots)
+                idle = np.zeros((slots - T, TRACE_WORDS), np.float32)
+                idle[:, 0] = i % W
+                idle[:, 1:3] = -1.0
+                idle[:, 3], idle[:, 4] = 2 * i, 2 * i + 1
+                idle[:, 5] = -1.0
+                base = plan.ring_offset + TRACE_HEADER
+                self.heap[base + T * TRACE_WORDS:base + slots * TRACE_WORDS] \
+                    = torch.from_numpy(idle.ravel()).to(self.device)
 
     def bind(self, params: Mapping[str, torch.Tensor]) -> None:
         """Build the heap from graph-named weights, one tensor at a time;
@@ -184,8 +232,10 @@ class MegakernelExecutor:
 
     # ---------------------------------------------------------------- steps
     def write_step_inputs(self, tokens, seq_lens, positions=None) -> None:
-        """Write one step's tokens, positions and lengths into the heap
-        and zero the event counters and the tick (one ``index_copy_``)."""
+        """Write one step's tokens, positions and lengths into the heap,
+        zero the event counters and the tick and, under the dynamic
+        scheduler, rewrite the initial queue image and zero the
+        ticket (one ``index_copy_``)."""
         lens = np.asarray(seq_lens, np.int64)
         vals = {"tokens": np.asarray(tokens), "seq_lens": lens,
                 "live_lens": lens + 1,
@@ -193,14 +243,15 @@ class MegakernelExecutor:
                 else np.asarray(positions)}
         flat = np.concatenate([np.asarray(vals[n], np.float32).reshape(size)
                                for n, size in self._entries]
-                              + [np.zeros((self._n_zero,), np.float32)])
+                              + [self._tail])
         self.heap.index_copy_(0, self._upd_idx,
                               torch.from_numpy(flat).to(self.device))
 
     def launch(self) -> None:
         """One kernel launch over the whole descriptor table; it follows
-        ``write_step_inputs``, which zeroes the counters it counts up."""
-        megakernel(self.heap, self._descs, self.plan.statics)
+        ``write_step_inputs``, which zeroes the counters it counts up and
+        rewrites the queue image."""
+        megakernel(self.heap, self._descs, self.plan.statics, self._sched)
 
     def step(self, tokens, seq_lens, positions=None) -> torch.Tensor:
         """One decode step inside the kernel; returns the logits (B, V) on
@@ -235,10 +286,43 @@ class MegakernelExecutor:
         per_worker = self.worker_counters()
         return {k: sum(d[k] for d in per_worker) for k in STATS_FIELDS}
 
+    def scheduler_counters(self) -> Dict[str, Any]:
+        """The dynamic scheduler's accounting of the LAST step: the
+        [pushed, popped] cursors of every pool (W workers, then the
+        overflow queue) and the pop sources summed over workers.  Every
+        pool drains (pushed == popped) and the pops add up to T."""
+        assert self.plan.dynamic, "the static scheduler has no queues"
+        assert self.heap is not None, "bind() first"
+        W = self.plan.num_workers
+        off = self.plan.qc_offset
+        qc = self.heap[off:off + 2 * (W + 1)].cpu().numpy()
+        per = self.pipeline_counters()
+        return {
+            "queue_pushed": [int(qc[2 * i]) for i in range(W + 1)],
+            "queue_popped": [int(qc[2 * i + 1]) for i in range(W + 1)],
+            "pops_own": per["pops_own"],
+            "pops_overflow": per["pops_overflow"],
+            "steals": per["steals"],
+            "idle_slots": per["idle_slots"],
+        }
+
+    def pop_trace(self) -> np.ndarray:
+        """The dynamic scheduler's pop trace of the LAST step: the
+        descriptor row of each task in ticket order (the order the tasks
+        completed on the card, slot order in the plain version), -1 for
+        the idle entries past T."""
+        assert self.plan.dynamic, "the static scheduler has no pop trace"
+        assert self.heap is not None, "bind() first"
+        off = self.plan.trace_offset
+        n = self.plan.num_steps * self.plan.num_workers
+        raw = self.heap[off:off + n].cpu().numpy()
+        return np.where(raw >= QUEUE_EMPTY / 2, -1, raw).astype(np.int64)
+
     def task_ring(self) -> np.ndarray:
         """The trace ring of the LAST step: ``(num_steps * W,
-        TRACE_WORDS)`` float32 records in grid-slot order (``obs``
-        decodes them)."""
+        TRACE_WORDS)`` float32 records in grid-slot order, or in pop
+        ticket order under the dynamic scheduler (``obs`` decodes
+        them)."""
         assert self.plan.trace, "plan compiled without trace=True"
         assert self.heap is not None, "bind() first"
         off = self.plan.ring_offset + TRACE_HEADER

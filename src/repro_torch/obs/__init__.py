@@ -1,8 +1,9 @@
 """Observability: typed task timelines and their Perfetto export.
 
-The port's copies of the reference's ``repro/obs`` for the static
-scheduler.  The megakernel's trace ring (``trace=True``) records one
-``desc.TRACE_WORDS`` record per grid slot; :func:`decode_ring` turns it
+The port's copies of the reference's ``repro/obs`` for both
+schedulers.  The megakernel's trace ring (``trace=True``) records one
+``desc.TRACE_WORDS`` record per grid slot (per pop under the dynamic
+scheduler); :func:`decode_ring` turns it
 into a :class:`TaskTrace`, :func:`check_event_order` checks it against
 the descriptor table's event words, and :func:`chrome_trace` exports it
 as JSON that Perfetto (https://ui.perfetto.dev) loads.

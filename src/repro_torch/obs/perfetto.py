@@ -37,6 +37,8 @@ def chrome_trace(trace: TaskTrace) -> Dict[str, Any]:
             args["wait_cnt"] = e.wait_cnt
         if e.sig_ev >= 0:
             args["sig_ev"] = e.sig_ev
+        if e.source >= 0:
+            args["pop_source"] = ("own", "overflow", "steal")[e.source]
         events.append({
             "ph": "X", "name": e.name, "cat": trace.origin,
             "pid": e.chip, "tid": e.worker,

@@ -2,9 +2,11 @@
 
 * :func:`decode_ring` — the megakernel's heap-resident trace ring
   (``MegakernelExecutor.task_ring()``), the observed timeline in logical
-  ticks (two global fetch-and-increment ticks per grid slot);
-* :func:`sequential_trace` — a sequential execution of the compiled
-  order on the same two-ticks-per-task clock.
+  ticks (two global fetch-and-increment ticks per grid slot, or per pop
+  under the dynamic scheduler);
+* :func:`sequential_trace` — a sequential execution on the same
+  two-ticks-per-task clock: of the compiled order, or of the dynamic
+  scheduler's protocol replay.
 
 ``chrome_trace`` (``obs/perfetto.py``) exports either.
 """
@@ -50,7 +52,7 @@ class TaskTrace:
     """A full timeline: events plus enough context to export it."""
 
     origin: str                    # "kernel" | "interpreter"
-    scheduler: str                 # "static"
+    scheduler: str                 # "static" | "dynamic"
     num_workers: int
     events: List[TaskEvent]
     n_chips: int = 1
@@ -68,8 +70,8 @@ def _live_slots(ring: np.ndarray, descs) -> np.ndarray:
     """Rows of a raw task ring worth decoding: every slot that computed
     (kind > 0) or synchronized (a wait or signal word on its descriptor:
     dummy tasks carry the compiler's start/final events, and dropping
-    them would make the event-order check miss their signals).  Silent
-    noop pads are skipped."""
+    them would make the event-order check miss their signals).  Dynamic
+    idle entries (row -1) and silent static noop pads are skipped."""
     rows = ring[:, 1].astype(np.int64)
     live = rows >= 0
     idx = np.clip(rows, 0, len(descs) - 1)
@@ -80,13 +82,19 @@ def _live_slots(ring: np.ndarray, descs) -> np.ndarray:
 def decode_ring(plan, ring: np.ndarray) -> TaskTrace:
     """Decode a raw ``task_ring()`` array against its plan into the
     observed :class:`TaskTrace` (times are logical ticks).  The ring's
-    row word is the grid slot, which maps back to its task through the
-    worker partition."""
+    row word is the descriptor row: under the dynamic scheduler the
+    linearized position (task id ``compiled.order[row]``), under the
+    static one the grid slot, which maps back through the worker
+    partition."""
     assert ring.ndim == 2 and ring.shape[1] == TRACE_WORDS
     W = plan.num_workers
-    part = plan.compiled.partition
-    row_tid = {part.step_of[t] * W + part.worker_of[t]: t
-               for t in part.step_of}
+    if plan.scheduler == "dynamic":
+        order = plan.compiled.order
+        row_tid = {r: order[r] for r in range(len(order))}
+    else:
+        part = plan.compiled.partition
+        row_tid = {part.step_of[t] * W + part.worker_of[t]: t
+                   for t in part.step_of}
 
     events: List[TaskEvent] = []
     for i in np.nonzero(_live_slots(ring, plan.descs))[0]:
@@ -108,29 +116,45 @@ def decode_ring(plan, ring: np.ndarray) -> TaskTrace:
             sig_ev=int(d[34]),
         ))
     return TaskTrace(
-        origin="kernel", scheduler="static", num_workers=W, events=events,
+        origin="kernel", scheduler=plan.scheduler, num_workers=W,
+        events=events,
         meta={"num_steps": plan.num_steps,
               "ring_slots": int(ring.shape[0]),
               "time_unit": "tick"})
 
 
-def sequential_trace(compiled) -> TaskTrace:
-    """A sequential execution of ``compiled.order`` on the kernel ring's
-    two-ticks-per-task clock (task *i* spans [2i, 2i+1)); each task
-    keeps the worker its partition gives it."""
+def sequential_trace(compiled, scheduler: str = "static",
+                     seq=None) -> TaskTrace:
+    """A sequential execution on the kernel ring's two-ticks-per-task
+    clock (task *i* spans [2i, 2i+1)).  Static: ``compiled.order``, each
+    task on the worker its partition gives it.  Dynamic: ``seq`` is the
+    :class:`~repro_torch.runtime.dyn_sched.SeqTrace` of the protocol
+    replay (pop order, workers, sources)."""
     tg = compiled.tg
     part = compiled.partition
-    worker_of = part.worker_of if part is not None else {}
-    events: List[TaskEvent] = []
-    for i, tid in enumerate(compiled.order):
+
+    def _ev(i, tid, worker, source=-1):
         task = tg.tasks[tid]
         kind = KIND_CODES.get("noop" if task.is_dummy else task.kind, 0)
-        events.append(TaskEvent(
-            task=tid, row=i, worker=int(worker_of.get(tid, 0)), kind=kind,
+        return TaskEvent(
+            task=tid, row=i, worker=worker, kind=kind,
             name=KIND_NAMES.get(kind, f"kind{kind}"),
-            start=float(2 * i), end=float(2 * i + 1)))
-    W = part.num_workers if part is not None else 1
-    return TaskTrace(origin="interpreter", scheduler="static",
+            start=float(2 * i), end=float(2 * i + 1), source=source)
+
+    events: List[TaskEvent] = []
+    if scheduler == "dynamic" and seq is not None:
+        src_code = {"own": 0, "overflow": 1, "steal": 2}
+        order = compiled.order
+        for i, (row, w, src) in enumerate(zip(seq.order, seq.worker,
+                                              seq.source)):
+            events.append(_ev(i, order[row], w, src_code.get(src, -1)))
+        W = max(seq.worker, default=0) + 1 if seq.worker else 1
+    else:
+        worker_of = part.worker_of if part is not None else {}
+        for i, tid in enumerate(compiled.order):
+            events.append(_ev(i, tid, int(worker_of.get(tid, 0))))
+        W = part.num_workers if part is not None else 1
+    return TaskTrace(origin="interpreter", scheduler=scheduler,
                      num_workers=W, events=events,
                      meta={"time_unit": "tick"})
 

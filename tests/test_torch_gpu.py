@@ -1,7 +1,8 @@
 """On the card: the hand-written CUDA megakernel against its plain PyTorch
 version, at the reduced size (deepseek-7b reduced: GQA with 4 query heads
-over 2 KV heads).  Every test here is marked ``gpu`` and skips without a
-CUDA device; the file imports no JAX, so it runs where JAX is absent:
+over 2 KV heads), under the static and the dynamic scheduler.  Every test
+here is marked ``gpu`` and skips without a CUDA device; the file imports
+no JAX, so it runs where JAX is absent:
 
     pytest -m gpu tests/test_torch_*.py
 """
@@ -20,11 +21,14 @@ from repro_torch.configs import get_config
 from repro_torch.core.graph import OpKind
 from repro_torch.megakernel import (MegakernelExecutor,
                                     compile_decode_megakernel, launch_count,
-                                    megakernel_plain, reset_launch_count)
+                                    lower_tgraph, megakernel_plain,
+                                    reset_launch_count)
+from repro_torch.megakernel.desc import dynamic_tail
 from repro_torch.megakernel.kernel import (SPIN_TIMEOUT_S, check_workers,
                                            max_workers, megakernel)
 from repro_torch.megakernel.ops import read_stats_block
 from repro_torch.obs import check_event_order, decode_ring
+from repro_torch.runtime.dyn_sched import DynSchedPlan
 
 B, S = 2, 16
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
@@ -230,6 +234,187 @@ def test_wait_past_its_deadline_fails_the_run(cuda):
     proc = subprocess.run([sys.executable, "-c", _STUCK], env=env,
                           capture_output=True, text=True,
                           timeout=SPIN_TIMEOUT_S + 120)
+    took = time.perf_counter() - t0
+    assert proc.returncode != 0, proc.stdout
+    assert "clean launch ok" in proc.stdout and "no fault" not in proc.stdout
+    assert "CUDA" in proc.stderr, proc.stderr[-2000:]
+    assert took >= SPIN_TIMEOUT_S
+
+
+def fanout_plan(T: int, W: int):
+    """A dynamic plan of ``T`` noop rows: row 0 signals one event whose
+    ``T - 1`` consumers all have worker 0's pool as affinity, so that the
+    one push of its fan-out fills the pool and spills the rest into the
+    overflow queue.  Returns (scheduler plan, descriptor table, statics,
+    heap size); ``queue_image`` gives the initial pools."""
+    wait = np.zeros(T, np.int32)
+    wait[0] = -1
+    sig = np.full(T, -1, np.int32)
+    sig[0] = 0
+    dyn = DynSchedPlan(W, T, np.zeros(T, np.int32), np.array([1], np.int32),
+                       [list(range(1, T))], [[0]], wait, sig,
+                       [[0]] + [[] for _ in range(W - 1)], [],
+                       list(range(T)))
+    descs = np.zeros((T, 36), np.int64)
+    descs[:, 32], descs[:, 34] = wait, sig
+    descs[1:, 33] = 1
+    tail = dynamic_tail(dyn, 0)
+    statics = {"TN": 128, "TK": 128, "HD": 128, "G": 1, "STORE_CH": 128,
+               "THETA": 1e4, **tail["statics"]}
+    return dyn, descs, statics, tail["heap_size"]
+
+
+def fanout_heap(dyn, statics, heap_size, device):
+    """A zeroed heap holding the fan-out plan's initial queue image."""
+    heap = torch.zeros(heap_size, device=device)
+    pools, cursors = dyn.queue_image()
+    q0 = statics["QOFF"]
+    heap[q0:q0 + pools.size] = torch.from_numpy(pools).to(device)
+    c0 = statics["QC_OFF"]
+    heap[c0:c0 + cursors.size] = torch.from_numpy(cursors).to(device)
+    return heap
+
+
+def _base_heap(plan, cfg, cuda, seed=3):
+    """Random weights and a random cache in a heap laid out for ``plan``."""
+    ex = MegakernelExecutor(plan, cfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ex.init_weights(gen)
+    for name in plan.input_classes()["state"]:
+        plan.view(ex.heap, name).normal_(0.0, 1.0, generator=gen)
+    return ex.heap
+
+
+def _check_dynamic(ex):
+    """The dynamic launch's own accounting: every pool drained, T pops,
+    the pop trace a permutation of the rows, no wait violation."""
+    plan = ex.plan
+    T = plan.dyn.num_tasks
+    qc = ex.scheduler_counters()
+    assert qc["queue_pushed"] == qc["queue_popped"], qc
+    assert sum(qc["queue_popped"]) == T
+    assert qc["pops_own"] + qc["pops_overflow"] + qc["steals"] == T
+    trace = ex.pop_trace()
+    assert np.array_equal(np.sort(trace[:T]), np.arange(T))
+    assert (trace[T:] == -1).all()
+    assert all(c["event_wait_violations"] == 0
+               for c in ex.worker_counters())
+    return qc
+
+
+@pytest.mark.gpu
+def test_cuda_dynamic_bitwise_equal_static(cuda):
+    """The dynamic kernel at W ∈ {1, 2, 4, W_max} from one heap image:
+    logits and every cache bitwise equal to the static kernel's, within
+    2e-4 of the plain dynamic version, pools drained, T pops, the pop
+    trace a permutation; traced at W_max, a clean event order and the
+    tensors and event counters unchanged by the ring."""
+    cfg = _cfg(2)
+    w_max = torch.cuda.get_device_properties(0).multi_processor_count
+    static = compile_decode_megakernel(cfg, B, S)
+    dyn_plans = {}
+    for w in (1, 2, 4, w_max):
+        p = compile_decode_megakernel(cfg, B, S, num_workers=w)
+        dyn_plans[w] = lower_tgraph(p.compiled, cfg, scheduler="dynamic")
+    traced = lower_tgraph(dyn_plans[w_max].compiled, cfg,
+                          scheduler="dynamic", trace=True)
+    base = _base_heap(traced, cfg, cuda)
+    run, _ = _step_at(static, cfg, base, cuda)
+    names = ["logits"] + static.input_classes()["state"]
+    want = {n: static.view(run.heap, n).clone() for n in names}
+    for w, plan in dyn_plans.items():
+        run, plain = _step_at(plan, cfg, base, cuda)
+        for n in names:
+            assert torch.equal(plan.view(run.heap, n), want[n]), (w, n)
+        megakernel_plain(plain, plan.descs, plan.statics,
+                         plan.dyn.sched_table())
+        torch.testing.assert_close(plan.view(run.heap, "logits"),
+                                   plan.view(plain, "logits"), rtol=2e-4,
+                                   atol=2e-4)
+        _check_dynamic(run)
+        untraced = run.heap
+    run, _ = _step_at(traced, cfg, base, cuda)
+    lo = traced.queue_offset
+    assert torch.equal(run.heap[:lo], untraced[:lo])
+    _check_dynamic(run)
+    tl = decode_ring(traced, run.task_ring())
+    assert len(tl.events) == traced.dyn.num_tasks
+    assert check_event_order(tl) == []
+
+
+@pytest.mark.gpu
+def test_cuda_dynamic_repeated_launches_bitwise(cuda):
+    """Twenty launches at W_max on one heap give bitwise-equal logits:
+    the pop order changes from launch to launch, the outputs do not."""
+    cfg = _cfg(2)
+    w_max = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = compile_decode_megakernel(cfg, B, S, num_workers=w_max,
+                                     scheduler="dynamic")
+    ex = MegakernelExecutor(plan, cfg, cuda)
+    ex.upload(_base_heap(plan, cfg, cuda))
+    first = None
+    for _ in range(20):
+        ex.write_step_inputs(np.array([3, 7]), np.array([1, 12]))
+        ex.launch()
+        logits = plan.view(ex.heap, "logits").clone()
+        first = logits if first is None else first
+        assert torch.equal(logits, first)
+    _check_dynamic(ex)
+
+
+@pytest.mark.gpu
+def test_cuda_dynamic_overflow_and_steal(cuda):
+    """A fan-out of 299 consumers into one pool: 128 fill it, the rest
+    spill into the overflow queue, and the four workers drain both."""
+    dyn, descs, statics, size = fanout_plan(300, 4)
+    heap = fanout_heap(dyn, statics, size, cuda)
+    megakernel(heap, torch.from_numpy(descs).to(cuda), statics,
+               torch.from_numpy(dyn.sched_table()).to(cuda))
+    torch.cuda.synchronize()
+    c0, W = statics["QC_OFF"], 4
+    qc = heap[c0:c0 + 2 * (W + 1)].cpu().numpy()
+    assert (qc[0::2] == qc[1::2]).all() and qc[1::2].sum() == 300
+    assert qc[2 * W] == 300 - 1 - 128            # the spill
+    stats = read_stats_block(heap, statics["STATS_OFF"], W)
+    assert sum(c["pops_overflow"] for c in stats) == 171
+    t0 = statics["TRACE_OFF"]
+    assert np.array_equal(np.sort(heap[t0:t0 + 300].cpu().numpy()),
+                          np.arange(300))
+
+
+_STUCK_DYN = r"""
+import dataclasses, torch
+from repro_torch.configs import get_config
+from repro_torch.megakernel import (MegakernelExecutor,
+                                    compile_decode_megakernel)
+cfg = dataclasses.replace(get_config("deepseek-7b").reduced(), n_layers=1)
+plan = compile_decode_megakernel(cfg, 2, 16, num_workers=4,
+                                 scheduler="dynamic")
+ex = MegakernelExecutor(plan, cfg, "cuda")
+ex.init_weights(torch.Generator(device="cuda").manual_seed(0))
+ex.write_step_inputs([3, 7], [1, 12])
+ex.launch()
+torch.cuda.synchronize()
+print("clean launch ok", flush=True)
+ex._sched[0, 0] += 1                     # event 0 never triggers
+ex.write_step_inputs([3, 7], [1, 12])
+ex.launch()
+torch.cuda.synchronize()
+print("no fault", flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_dynamic_deadline_fails_the_run(cuda):
+    """A dynamic plan whose one event has its trigger count raised by one
+    never pushes that event's consumers: the workers find every pool
+    empty with tasks left, and the kernel traps at the deadline instead
+    of hanging."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _STUCK_DYN], env=env,
+                          capture_output=True, text=True,
+                          timeout=SPIN_TIMEOUT_S + 180)
     took = time.perf_counter() - t0
     assert proc.returncode != 0, proc.stdout
     assert "clean launch ok" in proc.stdout and "no fault" not in proc.stdout

@@ -18,8 +18,10 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "repro" or n.startswith("repro."))
+need = ("repro_torch.runtime.dyn_sched", "repro_torch.core.runtime_sim")
+missing = [m for m in need if m not in sys.modules]
 n = sum(1 for k in sys.modules if k.startswith("repro_torch"))
-print("BAD", bad, "N", n)
+print("BAD", bad, "MISSING", missing, "N", n)
 """
 
 
@@ -27,7 +29,7 @@ def test_port_imports_no_jax_and_no_reference():
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, check=True).stdout
-    assert "BAD [] " in out, out
+    assert "BAD [] MISSING [] " in out, out
     assert int(out.split("N")[-1]) > 20, out
 
 
@@ -62,9 +64,10 @@ def test_later_slices_raise():
 
 
 def test_later_lowerings_raise():
-    """The dynamic scheduler and the multichip stamp are later slices:
-    asking for them raises.  The trace ring is ported: it is appended to
-    the heap."""
+    """The multichip stamp is a later slice: asking for it raises.  The
+    dynamic scheduler is ported: it lowers to a flat table with the ready
+    pools in the heap.  The trace ring is ported: it is appended to the
+    heap."""
     from repro_torch.configs import get_config
     from repro_torch.core.compile import CompileOptions, megakernelize
     from repro_torch.core.lowering import build_decode_graph
@@ -72,8 +75,11 @@ def test_later_lowerings_raise():
     cfg = dataclasses.replace(get_config("deepseek-7b").reduced(),
                               n_layers=1)
     compiled = megakernelize(build_decode_graph(cfg, 1, 8), CompileOptions())
-    with pytest.raises(NotImplementedError):
-        lower_tgraph(compiled, cfg, scheduler="dynamic")
+    dyn = lower_tgraph(compiled, cfg, scheduler="dynamic")
+    assert dyn.scheduler == "dynamic" and dyn.statics["DYN"] == 1
+    assert dyn.descs.shape[0] == len(compiled.order)
+    assert dyn.event_offset < dyn.queue_offset < dyn.qc_offset \
+        < dyn.trace_offset < dyn.stats_offset < dyn.ctl_offset
     plain, traced = lower_tgraph(compiled, cfg), \
         lower_tgraph(compiled, cfg, trace=True)
     assert traced.trace and traced.ring_offset == plain.heap_size
