@@ -45,11 +45,28 @@ for that many workers, and the partitioner picks the width it uses.
    lengths, and the dynamic walk of an all-noop table (the pops and
    pushes alone), beside the torch Program's step and the plain version;
    the kernel's logits are held to the plain version's within 3e-4, the
-   per-worker counters and the dynamic pop sources are shown, and each
-   task kind is timed alone under the static scheduler;
-4. prints one JSON line on the kernels (launches on the main path, error
-   against the plain version, times, the bound), the device line last.
+   step is timed through the kernel's dense and extended instantiations
+   in ten pairs (the reason the dense ones exist), the per-worker
+   counters and the dynamic pop sources are shown, and each task kind is
+   timed alone under the static scheduler;
+2b. the same checks on granite-moe-1b-a400m cut to 2 layers at full width
+   (32 experts, top-8; the MoE kinds 9-11: router top-k, expert GEMM,
+   combine), with the routers' zeros bitwise the plain version's;
+3b. the MoE slice: full 24-layer granite served as in phase 3 at
+   ``capacity_factor = n_experts`` (the reference's dropless convention:
+   the megakernel is dropless, and the torch Program and the prefill then
+   are too), each decode step within 3e-4 of the torch Program; the step
+   timed static and dynamic beside both of its bounds (every expert read,
+   as the kernel does, and only the experts the step's routers chose),
+   each task kind alone, the overflow pops and steals;
+4. prints the bounds of the standalone kernels still to port beside one
+   PyTorch call that computes the same function, one JSON line on the
+   kernels (launches on both models' main paths, the largest error
+   against the plain version over both, times, the bounds) and the
+   device line last.  Every phase prints its wall time.
 """
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -103,9 +120,15 @@ def phase_build():
     t0 = time.perf_counter()
     path, out = build_library()
     log(f"phase 1 ok: built {path.name} in {time.perf_counter() - t0:.1f} s")
+    names = {"ILb0ELb0E": "static", "ILb1ELb0E": "dynamic",
+             "ILb0ELb1E": "static extended", "ILb1ELb1E": "dynamic extended"}
+    which = ""
     for line in out.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log("  nvcc:", line.strip())
+        if "megakernel" in line and ("Compiling" in line
+                                     or "Function properties" in line):
+            which = next((v for k, v in names.items() if k in line), "")
+        if which and ("registers" in line or "spill" in line):
+            log(f"  nvcc, {which} kernel:", line.strip())
 
 
 _STUCK = r"""
@@ -279,7 +302,7 @@ def _pops(qc):
             f"{qc['steals']} steals, {qc['idle_slots']} empty polls")
 
 
-def phase_dynamic(cfg2, w_max, plans, base, first, toks, lens):
+def phase_dynamic(cfg2, w_max, plans, base, first, toks, lens, tag):
     """The dynamic scheduler at 2 layers from the static plans' compiled
     graphs on the same heap image: bitwise equal to the static kernel,
     within 2e-4 of the plain dynamic version, drained pools, a traced run
@@ -349,7 +372,8 @@ def phase_dynamic(cfg2, w_max, plans, base, first, toks, lens):
         assert torch.equal(wide.plan.view(wide.heap, "logits"),
                            first["logits"]), i
         steals.append(_check_dynamic(wide)["steals"])
-    log(f"phase 2 dynamic ok: W in (1, 2, 4, {wide.plan.num_workers}) "
+    log(f"phase {tag} dynamic ok ({cfg2.name}): W in (1, 2, 4, "
+        f"{wide.plan.num_workers}) "
         f"bitwise equal to static, max_err vs plain {max(errs):.3e}; traced "
         f"at W={traced.num_workers}: tensors and event counters bitwise "
         f"equal, ticks a permutation, check_event_order clean over "
@@ -361,11 +385,15 @@ def phase_dynamic(cfg2, w_max, plans, base, first, toks, lens):
     return max(errs)
 
 
-def phase_workers(cfg, w_max):
+def _routers(plan):
+    """The MoE layers' router weights (kind 9's outputs) by name."""
+    return [n for n in plan.layout if n.endswith(".router")]
+
+
+def phase_workers(cfg, w_max, tag):
     """Two layers at full width, one heap image: the kernel at W ∈ {1, 2,
     4, W_max} against each other and against its plain version, then
-    traced at W_max."""
-    import dataclasses
+    traced at W_max; the deadline and residency faults in phase 2."""
     from repro_torch.megakernel import (MegakernelExecutor,
                                         compile_decode_megakernel,
                                         launch_count, megakernel_plain,
@@ -387,8 +415,10 @@ def phase_workers(cfg, w_max):
     traced = lower_tgraph(wide.compiled, cfg2, trace=True)
     p1 = plans[1]
     log(f"  heap {traced.heap_size * 4 / 1e9:.2f} GB, statics "
-        f"TN={p1.statics['TN']} TM={p1.statics['TM']} TK={p1.statics['TK']}")
-    phase_faults(wide, w_max)
+        f"TN={p1.statics['TN']} TM={p1.statics['TM']} TK={p1.statics['TK']}"
+        f" TOPK={p1.statics['TOPK']} E_MAX={p1.statics['E_MAX']}")
+    if tag == "2":
+        phase_faults(wide, w_max)
 
     # one heap image, sized for the largest tail (a traced W_max plan)
     big = max([traced, lower_tgraph(wide.compiled, cfg2, scheduler="dynamic",
@@ -402,6 +432,7 @@ def phase_workers(cfg, w_max):
     rng = np.random.default_rng(SEED)
     toks, lens = rng.integers(1, cfg.vocab, size=B), np.array([37, 90])
     state = p1.input_classes()["state"]
+    routers = _routers(p1)
 
     def run(plan):
         ex = MegakernelExecutor(plan, cfg2, "cuda")
@@ -426,19 +457,26 @@ def phase_workers(cfg, w_max):
                            plan.view(plain, "logits"), 2e-4))
         assert torch.equal(plan.view(ex.heap, "h0"), plan.view(plain, "h0"))
         n_caches = _check_cache_updates(plan, ex.heap, plain, list(lens))
+        for n in routers:               # the same experts chosen, bitwise
+            assert torch.equal(plan.view(ex.heap, n) == 0,
+                               plan.view(plain, n) == 0), n
+            _close(plan.view(ex.heap, n), plan.view(plain, n), 2e-4)
         counters = ex.worker_counters()
         assert counters == read_stats_block(plain, plan.stats_offset,
                                             plan.num_workers)
         waits, sigs = _check_events(plan, counters)
-        outs = {n: plan.view(ex.heap, n) for n in ["logits"] + state}
+        outs = {n: plan.view(ex.heap, n)
+                for n in ["logits"] + state + routers}
         if first is None:
             first = {n: v.clone() for n, v in outs.items()}
         for n, v in outs.items():
             assert torch.equal(v, first[n]), (w, n)
-        log(f"  W={plan.num_workers}: logits and {len(state)} caches "
+        log(f"  W={plan.num_workers}: logits, {len(state)} caches and "
+            f"{len(routers)} routers "
             f"{'kept' if w == 1 else 'bitwise equal to W=1'}; vs plain "
             f"max_err={errs[-1]:.3e} "
-            f"(<= 2e-4), embedding and {n_caches} cache updates bitwise; "
+            f"(<= 2e-4), embedding and {n_caches} cache updates bitwise, "
+            f"the routers' zeros the plain version's; "
             f"{waits} waits, {sigs} signals, 0 violations")
         del plain, ex_plain
         if w == w_max:
@@ -459,7 +497,8 @@ def phase_workers(cfg, w_max):
     assert order == [], order[:5]
     assert validate_chrome_trace(chrome_trace(tl)) == []
     n_wait = sum(e.wait_ev >= 0 for e in tl.events)
-    log(f"phase 2 ok: W in (1, 2, 4, {wide.num_workers}) bitwise equal, "
+    log(f"phase {tag} ok ({cfg.name}): W in (1, 2, 4, {wide.num_workers}) "
+        f"bitwise equal, "
         f"max_err vs "
         f"plain {max(errs):.3e}; traced at W={traced.num_workers}: heap "
         f"outside the ring bitwise equal, {ring.shape[0]} slots with ticks "
@@ -468,7 +507,8 @@ def phase_workers(cfg, w_max):
         f"Perfetto JSON valid")
     del ex, wide_heap
     torch.cuda.empty_cache()
-    err_dyn = phase_dynamic(cfg2, w_max, plans, base, first, toks, lens)
+    err_dyn = phase_dynamic(cfg2, w_max, plans, base, first, toks, lens,
+                            tag)
     del src, base
     torch.cuda.empty_cache()
     return max(max(errs), err_dyn)
@@ -503,29 +543,52 @@ def _record(prog, calls):
         rec_reset
 
 
-def _step_work(plan, cfg, lens):
+def _step_work(plan, cfg, lens, heap=None):
     """Bytes a decode step must move and operations it must do, for these
     live lengths: every weight read once (of the embedding table only the
     B gathered rows), the live KV rows read once, the new KV rows and the
-    logits written once; the FLOPs of the matmuls and of attention."""
+    logits written once; the FLOPs of the matmuls, the expert GEMMs and
+    attention.  MoE: with ``heap`` (after the step), only the experts its
+    routers chose (weight > 0) are read, each over the rows that chose
+    it; without, every expert over every row, as the kernel computes."""
     from repro_torch.core.graph import OpKind
     g = plan.compiled.graph
     shape = lambda n: plan.layout[n].shape
+    size = lambda n: int(np.prod(shape(n)))
     weights = [n for n in plan.input_classes()["weights"] if n != "embed"]
-    w_elems = sum(int(np.prod(shape(n))) for n in weights)
-    mm_elems = sum(int(np.prod(shape(op.inputs[1]))) for op in g.ops
+    experts = [n for n in weights if ".moe_w" in n]
+    w_elems = sum(size(n) for n in weights if n not in experts)
+    mm_elems = sum(size(op.inputs[1]) for op in g.ops
                    if op.kind == OpKind.MATMUL)
+    e_elems = e_flops = 0
+    for n in experts:                   # (E, ...) per layer and GEMM
+        per = size(n) // shape(n)[0]
+        if heap is None:
+            e_elems += size(n)
+            e_flops += 2 * B * size(n)
+        else:
+            w = plan.view(heap, n.split(".")[0] + ".router") > 0
+            e_elems += per * int(w.any(0).sum())
+            e_flops += 2 * per * int(w.sum())
     kvd, qd = cfg.n_kv_heads * cfg.hd, cfg.n_heads * cfg.hd
     live = int(np.sum(np.asarray(lens) + 1))
     L = cfg.n_layers
-    nbytes = 4 * (w_elems + B * cfg.d_model + 2 * L * live * kvd
+    nbytes = 4 * (w_elems + e_elems + B * cfg.d_model + 2 * L * live * kvd
                   + 2 * L * B * kvd + B * cfg.vocab)
-    flops = 2 * B * mm_elems + 4 * L * live * qd
+    flops = 2 * B * mm_elems + e_flops + 4 * L * live * qd
     return nbytes, flops
 
 
+def _bound(work):
+    """(ms, "bytes" or "operations") of a step's (bytes, FLOPs) on the
+    H100's published rates."""
+    t_b, t_f = work[0] / H100_HBM_BYTES_PER_S, work[1] / H100_F32_FLOPS
+    return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
 KIND_NAMES = ("noop", "matmul", "rmsnorm", "rope", "glu", "resid",
-              "attention", "cache_update", "embed")
+              "attention", "cache_update", "embed", "topk", "expert_gemm",
+              "combine")
 
 
 def _kernel_ms(ex, toks, lens, n, descs=None):
@@ -573,12 +636,39 @@ def _time_by_kind(ex, plan, toks, lens):
     return out
 
 
+def _instantiations_ab(ex, exd, toks, lens, pairs=10):
+    """A dense plan's step through the kernel's dense instantiations and
+    through its extended ones (the MoE kinds and the matmul's tail
+    compiled in), static and dynamic: ``pairs`` pairs of 5 launches
+    each, the pair's first side alternating.  Each extended step's
+    logits are held to the dense one's within 3e-4.  Returns
+    {(scheduler, extended): [ms per pair]} and whether all logits were
+    bitwise equal."""
+    from repro_torch.megakernel import kernel as mk
+    chosen = mk._extended
+    times, logits, bitwise = {}, {}, True
+    try:
+        for i in range(pairs):
+            for ext in ((False, True) if i % 2 == 0 else (True, False)):
+                mk._extended = lambda statics, ext=ext: ext
+                for sched, e in (("static", ex), ("dynamic", exd)):
+                    times.setdefault((sched, ext), []).append(
+                        _kernel_ms(e, toks, lens, 5))
+                    got = e.plan.view(e.heap, "logits").clone()
+                    want = logits.setdefault(sched, got)
+                    _close(got, want, 3e-4)
+                    bitwise = bitwise and torch.equal(got, want)
+    finally:
+        mk._extended = chosen
+    return times, bitwise
+
+
 PROMPTS = (16, 40, 72, 100)           # ragged prompt lengths, tokens
 
 
-def phase_serve(cfg, w_max):
-    """The slice: full deepseek-7b served through the dynamic kernel at
-    W_max, the static tables on the same heap."""
+def phase_serve(cfg, w_max, tag):
+    """A slice: the full model served through the dynamic kernel at W_max,
+    the static tables on the same heap."""
     from repro_torch.api import compile as mk_compile
     from repro_torch.megakernel import (MegakernelExecutor,
                                         compile_decode_megakernel,
@@ -593,7 +683,8 @@ def phase_serve(cfg, w_max):
     dplan = prog.plan
     W = dplan.num_workers
     assert W >= 2, W
-    log(f"  30-layer dynamic plan at W={w_max}: {W} workers used, "
+    L = cfg.n_layers
+    log(f"  {L}-layer dynamic plan at W={w_max}: {W} workers used, "
         f"{dplan.dyn.num_tasks} tasks, {dplan.num_events} event counters, "
         f"largest fan-out {dplan.dyn.max_out}, initial ready set "
         f"{sum(map(len, dplan.dyn.initial))} rows, heap "
@@ -607,7 +698,7 @@ def phase_serve(cfg, w_max):
         assert all((p.layout[n].offset, p.layout[n].ld)
                    == (dplan.layout[n].offset, dplan.layout[n].ld)
                    for n in dplan.layout)
-    log(f"  30-layer static plans of the same compile at W={W}: "
+    log(f"  {L}-layer static plans of the same compile at W={W}: "
         f"{plan.num_steps} steps, {plan.descs.shape[0]} rows, "
         f"{plan.num_events} event counters; at W=1 (its own compile): "
         f"{plan1.descs.shape[0]} rows ({time.perf_counter() - t0:.1f} s)")
@@ -687,6 +778,11 @@ def phase_serve(cfg, w_max):
     ms_static_ragged = _kernel_ms(ex, toks, ragged, 5)
     ms_dyn_ragged = _kernel_ms(exd, toks, ragged, 5)
     qc_ragged = _check_dynamic(exd)
+    moe = cfg.n_experts > 0
+    # MoE: the heap now holds the ragged step's routers, so this bound, as
+    # the (64, 64) one below, counts the experts that step's routers chose
+    bound_ragged = _bound(_step_work(plan, cfg, ragged,
+                                     ex.heap if moe else None))[0]
     walk = dplan.descs.copy()
     walk[:, 0] = 0
     dyn_walk_ms = _kernel_ms(exd, toks, lens, 3,
@@ -708,14 +804,13 @@ def phase_serve(cfg, w_max):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err30 = _close(kernel_logits, plan.view(ex.heap, "logits"), 3e-4)
-    nbytes, flops = _step_work(plan, cfg, lens)
-    bound_ms = 1e3 * max(nbytes / H100_HBM_BYTES_PER_S,
-                         flops / H100_F32_FLOPS)
-    bound_by = "bytes" if nbytes / H100_HBM_BYTES_PER_S \
-        >= flops / H100_F32_FLOPS else "operations"
-    rbytes, rflops = _step_work(plan, cfg, ragged)
-    bound_ragged = 1e3 * max(rbytes / H100_HBM_BYTES_PER_S,
-                             rflops / H100_F32_FLOPS)
+    # MoE: the bound of the work this step's routers asked for (the
+    # experts they chose), beside that of every expert (what the kernel,
+    # like the reference's, reads)
+    nbytes, flops = _step_work(plan, cfg, lens, ex.heap if moe else None)
+    bound_ms, bound_by = _bound((nbytes, flops))
+    all_bytes, all_flops = _step_work(plan, cfg, lens)
+    bound_all_ms = _bound((all_bytes, all_flops))[0]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  decode step at lengths {tuple(lens)}: static kernel at W={W} "
         f"{ms:.3f} ms, dynamic kernel at W={W} {ms_dyn:.3f} ms, static at "
@@ -726,12 +821,41 @@ def phase_serve(cfg, w_max):
         f"GFLOP)")
     log(f"  decode step at ragged lengths {tuple(ragged)}: static "
         f"{ms_static_ragged:.3f} ms, dynamic {ms_dyn_ragged:.3f} ms, bound "
-        f"{bound_ragged:.3f} ms; the dynamic walk of the all-noop table "
+        f"{bound_ragged:.3f} ms{' (routed experts)' if moe else ''}; the "
+        f"dynamic walk of the all-noop table "
         f"(pops, pushes, waits and signals alone) {dyn_walk_ms:.3f} ms")
+    if not moe:
+        ab, bitwise = _instantiations_ab(ex, exd, toks, lens)
+        for sched in ("static", "dynamic"):
+            dense, ext = ab[(sched, False)], ab[(sched, True)]
+            log(f"  {sched} step (64, 64), dense against extended "
+                f"instantiation (MoE kinds and matmul tail compiled in), "
+                f"{len(dense)} pairs of 5 launches, first side alternating:"
+                f" median {np.median(dense):.3f} against "
+                f"{np.median(ext):.3f} ms, dense quartiles "
+                f"{np.percentile(dense, 25):.3f}-"
+                f"{np.percentile(dense, 75):.3f} ms, dense faster in "
+                f"{sum(d < x for d, x in zip(dense, ext))} of {len(dense)}"
+                f" pairs; dense " + " ".join(f"{t:.3f}" for t in dense)
+                + "; extended " + " ".join(f"{t:.3f}" for t in ext))
+        log(f"  dense and extended logits bitwise equal: {bitwise}")
     log(f"  dynamic pop sources (last timed launch): equal lengths "
         f"{_pops(qc)}; ragged {_pops(qc_ragged)}; walk {_pops(qc_walk)}")
-    log(f"  kernel vs plain at 30 layers: logits max_err={err30:.3e}; peak "
-        f"memory {peak_gb:.2f} GB")
+    log(f"  kernel vs plain at {L} layers: logits max_err={err30:.3e}; "
+        f"peak memory {peak_gb:.2f} GB")
+    if moe:
+        gg = plan.descs[:, 0] == 10
+        steps = gg.reshape(-1, W).any(1)
+        log(f"  MoE bound (the one the step is held to) counts the experts "
+            f"this step's routers chose: {bound_ms:.3f} ms ({nbytes / 1e9:.2f}"
+            f" GB, {flops / 1e9:.1f} GFLOP); with every expert read for "
+            f"every row (what the kernel does, as the reference's) "
+            f"{bound_all_ms:.3f} ms ({all_bytes / 1e9:.2f} GB, "
+            f"{all_flops / 1e9:.1f} GFLOP)")
+        log(f"  expert GEMMs (kind 10): {int(gg.sum())} tasks a step "
+            f"({int(gg.sum()) // L} a layer) in {int(steps.sum())} of "
+            f"{len(steps)} static grid steps; the widest step runs "
+            f"{int(gg.reshape(-1, W).sum(1).max())} of them on {W} workers")
     table = _table_events(plan)
     busy = sum(1 for t, _, _ in table if t > 0)
     per = [f"{t}/{c['event_waits']}/{c['event_signals']}"
@@ -752,36 +876,76 @@ def phase_serve(cfg, w_max):
     log(f"  kernel time by kind alone under the static scheduler at W={W} "
         "(kind ms/tasks; noop = the walk of all rows with the event "
         "protocol): " + ", ".join(_time_by_kind(ex, plan, toks, lens)))
-    log("phase 3 ok")
-    return {"launches": launches, "max_abs_err": err30, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "workers": W, "ms_w1": ms1,
-            "ms_dyn": ms_dyn, "ms_dyn_ragged": ms_dyn_ragged,
-            "ms_static_ragged": ms_static_ragged, "dyn_walk_ms": dyn_walk_ms,
-            "bound_ragged_ms": bound_ragged}
+    if moe:
+        # does routing change an expert GEMM's time?  Kind 10 alone with
+        # the routers the heap holds, then with every router weight 0
+        # (every row masked)
+        table = plan.descs.copy()
+        table[table[:, 0] != 10, 0] = 0
+        table = torch.from_numpy(table).cuda()
+        routed = _kernel_ms(ex, toks, lens, 3, table)
+        for n in _routers(plan):
+            plan.view(ex.heap, n).zero_()
+        masked = _kernel_ms(ex, toks, lens, 3, table)
+        log(f"  expert GEMMs alone at W={W}: {routed:.3f} ms with the "
+            f"heap's routing, {masked:.3f} ms with every row masked (all "
+            f"router weights 0)")
+    log(f"phase {tag} ok ({cfg.name})")
+    out = {"launches": launches, "max_abs_err": err30, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, "workers": W, "ms_w1": ms1,
+           "ms_dyn": ms_dyn, "ms_dyn_ragged": ms_dyn_ragged,
+           "ms_static_ragged": ms_static_ragged, "dyn_walk_ms": dyn_walk_ms,
+           "bound_ragged_ms": bound_ragged, "served_max_err": worst}
+    if not moe:
+        med = lambda k: float(np.median(ab[k]))
+        out.update({"ms_ab_dense": med(("static", False)),
+                    "ms_ab_extended": med(("static", True)),
+                    "ms_dyn_ab_dense": med(("dynamic", False)),
+                    "ms_dyn_ab_extended": med(("dynamic", True))})
+    if moe:
+        out.update({"bound_all_experts_ms": bound_all_ms,
+                    "expert_gemm_routed_ms": routed,
+                    "expert_gemm_masked_ms": masked})
+    return out
 
 
 def standalone_bounds():
-    """The bounds of the standalone TPU kernels still to port, at the
-    largest float32 shape of ``tests/test_kernels.py`` (each input read
+    """The standalone TPU kernels still to port, at the largest float32
+    shape of ``tests/test_kernels.py``: each one's bound (each input read
     once, the output written once; causal attention does half the
-    products): (name, shape, bytes, FLOPs, bound ms, bound by)."""
-    out = []
+    products) beside the time of the one PyTorch call that computes the
+    same function (CUDA events over 100 calls after 10 warm-up calls,
+    TF32 off).  Returns (name, shape, bytes, FLOPs, bound ms, bound by,
+    library call, library ms) per kernel."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
     m, k, n = 384, 128, 384
-    out.append(("matmul", f"({m},{k})x({k},{n})", 4 * (m * k + k * n + m * n),
-                2 * m * k * n))
+    a, b = rnd(m, k), rnd(k, n)
     rows, d = 256, 512
-    out.append(("rmsnorm", f"({rows},{d})", 4 * (2 * rows * d + d),
-                4 * rows * d))
-    b, s, h, hd = 2, 256, 4, 64
-    out.append(("flash_attention", f"causal B={b} S={s} H={h} hd={hd}",
-                4 * 4 * b * s * h * hd, 4 * b * h * s * s * hd // 2))
-    rows_out = []
-    for name, shape, nbytes, flops in out:
-        t_b, t_f = nbytes / H100_HBM_BYTES_PER_S, flops / H100_F32_FLOPS
-        rows_out.append((name, shape, nbytes, flops, 1e3 * max(t_b, t_f),
-                         "bytes" if t_b >= t_f else "operations"))
-    return rows_out
+    x, w = rnd(rows, d), rnd(d)
+    bb, s, h, hd = 2, 256, 4, 64
+    q, kk, v = rnd(bb, h, s, hd), rnd(bb, h, s, hd), rnd(bb, h, s, hd)
+    cases = [
+        ("matmul", f"({m},{k})x({k},{n})", 4 * (m * k + k * n + m * n),
+         2 * m * k * n, "torch.matmul", lambda: torch.matmul(a, b)),
+        ("rmsnorm", f"({rows},{d})", 4 * (2 * rows * d + d), 4 * rows * d,
+         "torch.nn.functional.rms_norm",
+         lambda: F.rms_norm(x, (d,), w, 1e-6)),
+        ("flash_attention", f"causal B={bb} S={s} H={h} hd={hd}",
+         4 * 4 * bb * s * h * hd, 4 * bb * h * s * s * hd // 2,
+         "torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
+         lambda: F.scaled_dot_product_attention(q, kk, v, is_causal=True)),
+    ]
+    out = []
+    for name, shape, nbytes, flops, call, fn in cases:
+        for _ in range(10):
+            fn()
+        lib_ms = _events_ms(fn, 100)
+        out.append((name, shape, nbytes, flops) + _bound((nbytes, flops))
+                   + (call, lib_ms))
+    return out
 
 
 def main() -> int:
@@ -792,21 +956,46 @@ def main() -> int:
     from repro_torch.configs import get_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    cfg = get_config("deepseek-7b")
     w_max = torch.cuda.get_device_properties(0).multi_processor_count
-    phase_build()
-    err2 = phase_workers(cfg, w_max)
-    k = phase_serve(cfg, w_max)
-    k["max_abs_err"] = max(k["max_abs_err"], err2)
+
+    def timed(what, fn, *args):
+        gc.collect()                    # the last phase's heaps go first
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"  [{what}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
+    timed("phase 1", phase_build)
+    dense = get_config("deepseek-7b")
+    # the MoE slice at the reference's dropless capacity factor: the
+    # megakernel is dropless, and so are the torch Program and prefill
+    granite = get_config("granite-moe-1b-a400m")
+    granite = dataclasses.replace(granite,
+                                  capacity_factor=float(granite.n_experts))
+    err2 = timed("phase 2", phase_workers, dense, w_max, "2")
+    k = timed("phase 3", phase_serve, dense, w_max, "3")
+    err2b = timed("phase 2b", phase_workers, granite, w_max, "2b")
+    kb = timed("phase 3b", phase_serve, granite, w_max, "3b")
+    lib = timed("standalone bounds", standalone_bounds)
+    for row in lib:
+        log("  still to port: %s at %s: %d bytes, %d FLOP, bound %.6f ms "
+            "(%s); library yardstick %s %.6f ms" % row)
     kernel = {"name": "megakernel", "route": "cuda",
               "source": "src/repro_torch/megakernel/csrc/megakernel.cu",
-              "replaces": "src/repro/kernels/megakernel/kernel.py:1175"}
+              "replaces": "src/repro/kernels/megakernel/kernel.py:1175",
+              "kinds": "0-11"}
+    # the top-level times are deepseek-7b's (the dense slice); each
+    # model's own numbers follow under "models"
     kernel.update(k)
-    for row in standalone_bounds():
-        log("  still to port: %s at %s: %d bytes, %d FLOP, bound %.6f ms "
-            "(%s)" % row)
+    kernel["launches"] = k["launches"] + kb["launches"]
+    kernel["max_abs_err"] = max(k["max_abs_err"], err2, kb["max_abs_err"],
+                                err2b)
+    kernel["models"] = {dense.name: k, granite.name: kb}
+    log(f"chip_smoke took {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": [kernel]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

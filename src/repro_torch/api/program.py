@@ -35,7 +35,7 @@ import torch
 from ..core.compile import CompiledTGraph, CompileOptions, megakernelize
 from ..core.lowering import build_decode_graph, state_map
 from ..device import resolve_device
-from ..models.lm import (check_dense, init_cache, prefill_chunk,
+from ..models.lm import (check_supported, init_cache, prefill_chunk,
                          serve_step)
 
 __all__ = ["BACKENDS", "SCHEDULERS", "Program", "TorchProgram",
@@ -69,7 +69,7 @@ class Program:
     backend = "abstract"
 
     def __init__(self, cfg, batch: int, max_seq: int, device):
-        check_dense(cfg)
+        check_supported(cfg)
         self.cfg = cfg
         self.batch = batch
         self.max_seq = max_seq

@@ -1,10 +1,11 @@
 """Lowering: ModelConfig → kernel-level decode-step ComputationGraph.
 
-The port's copy of ``repro/core/lowering.py`` for the dense family (the
-MoE, SSM and embedding-input branches and TP AllReduce insertion are
-later slices and raise).  The graph's tensor names double as binding
-keys and as the port's parameter names, so ``decode_bindings`` is the
-parameter dict plus the cache and the per-step inputs.
+The port's copy of ``repro/core/lowering.py`` for the dense and MoE
+families (the SSM, shared-expert and embedding-input branches and TP
+AllReduce insertion are later slices and raise).  The graph's tensor
+names double as binding keys and as the port's parameter names, so
+``decode_bindings`` is the parameter dict plus the cache and the
+per-step inputs.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
-from ..models.lm import block_structure, check_dense
+from ..models.lm import block_structure, check_supported
 from .graph import ComputationGraph, OpKind
 
 __all__ = ["build_decode_graph", "decode_bindings"]
@@ -28,7 +29,7 @@ def build_decode_graph(
 ) -> ComputationGraph:
     """One decode step (one new token per request) as an operator graph,
     node for node the reference's graph of the same config."""
-    check_dense(cfg)
+    check_supported(cfg)
     if tp != 1:
         raise NotImplementedError("tensor parallelism is not ported yet")
     g = ComputationGraph(name or f"{cfg.name}-decode-b{batch}")
@@ -110,13 +111,33 @@ def build_decode_graph(
         g.add_op(OpKind.RMSNORM, [h, f"{L}.ln2_w"], [f"{L}.x2"],
                  eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
         x = f"{L}.x2"
-        f = cfg.d_ff
-        gate = matmul(x, f"{L}.wi_gate", f"{L}.gate", f)
-        up = matmul(x, f"{L}.wi_up", f"{L}.up", f)
-        g.add_tensor(f"{L}.glu", (b, f))
-        g.add_op(OpKind.GLU_MUL, [gate, up], [f"{L}.glu"],
-                 activation=cfg.activation)
-        y = matmul(f"{L}.glu", f"{L}.wo2", f"{L}.ffn", d)
+        if cfg.ffn_kind(i) == "mlp":
+            f = cfg.d_ff
+            gate = matmul(x, f"{L}.wi_gate", f"{L}.gate", f)
+            up = matmul(x, f"{L}.wi_up", f"{L}.up", f)
+            g.add_tensor(f"{L}.glu", (b, f))
+            g.add_op(OpKind.GLU_MUL, [gate, up], [f"{L}.glu"],
+                     activation=cfg.activation)
+            y = matmul(f"{L}.glu", f"{L}.wo2", f"{L}.ffn", d)
+        else:  # moe: router, top-k, the experts' fused GLU and down GEMMs
+            e, fe = cfg.n_experts, (cfg.moe_d_ff or cfg.d_ff)
+            logits = matmul(x, f"{L}.router_w", f"{L}.router_logits", e)
+            g.add_tensor(f"{L}.router", (b, e))
+            g.add_op(OpKind.SOFTMAX_TOPK, [logits], [f"{L}.router"],
+                     top_k=cfg.top_k)
+            g.add_tensor(f"{L}.moe_w1", (e, d, 2, fe), is_input=True)
+            g.add_tensor(f"{L}.eh", (e, b, fe))
+            g.add_op(OpKind.MOE_GATHER_GEMM,
+                     [x, f"{L}.router", f"{L}.moe_w1"], [f"{L}.eh"],
+                     activation=cfg.activation)
+            g.add_tensor(f"{L}.moe_w2", (e, fe, d), is_input=True)
+            g.add_tensor(f"{L}.eo", (e, b, d))
+            g.add_op(OpKind.MOE_GATHER_GEMM,
+                     [f"{L}.eh", f"{L}.router", f"{L}.moe_w2"], [f"{L}.eo"])
+            g.add_tensor(f"{L}.moe_out", (b, d))
+            g.add_op(OpKind.MOE_COMBINE, [f"{L}.eo", f"{L}.router"],
+                     [f"{L}.moe_out"])
+            y = f"{L}.moe_out"
         g.add_tensor(f"{L}.h2", (b, d))
         g.add_op(OpKind.RESIDUAL_ADD, [h, y], [f"{L}.h2"])
         h = f"{L}.h2"
@@ -159,7 +180,7 @@ def decode_bindings(cfg, params: Mapping[str, torch.Tensor],
     """A tensor for every graph input of ``build_decode_graph``: the
     weights as given (graph-named), the cache leaves reshaped to the
     graph's (B, S, KV·hd) state tensors, and the per-step inputs."""
-    check_dense(cfg)
+    check_supported(cfg)
     lens = torch.as_tensor(seq_lens, dtype=torch.int32)
     out: Dict[str, torch.Tensor] = dict(params)
     if cfg.tie_embeddings:

@@ -6,9 +6,12 @@
 // kernel.py:1175), for the static W-worker scheduler, the dynamic
 // scheduler (its pop at kernel.py:411-499, `_push` at :1039, the
 // signal-and-enqueue at :1063 and the dynamic trace record at :1104) and
-// the dense task kinds 0-8 (noop, matmul + bias + activation, rmsnorm,
-// rope, glu, residual/scale-add, GQA decode attention, KV cache update,
-// embedding), with the in-heap event wait and signal and the trace ring.
+// the task kinds 0-11: the dense family's 0-8 (noop, matmul + bias +
+// activation, rmsnorm, rope, glu, residual/scale-add, GQA decode
+// attention, KV cache update, embedding) and the MoE family's 9-11 (the
+// router's top-k softmax, `k_softmax_topk` at kernel.py:896; the expert
+// GEMM, `k_moe_gg` at :914; the weighted combine, `k_moe_combine` at
+// :947), with the in-heap event wait and signal and the trace ring.
 //
 // Design: one CTA of 512 threads per worker, all W CTAs resident at once
 // (a cooperative launch, which refuses a grid that cannot be).  Under the
@@ -92,6 +95,25 @@
 // is its own instantiation of the kernel (a template on DYN), so that the
 // dynamic loop's state takes no registers from the static loop's tasks.
 //
+// MoE (kinds 9-11).  The router top-k runs one warp per token row over
+// the E <= 128 expert columns (4 a lane): TOPK rounds of a warp argmax
+// that takes the lowest column among equal values (the reference's
+// first-hit rule), a softmax over the chosen values, zeros elsewhere.
+// The expert GEMM is the matmul's GEMV pass over one expert's weights,
+// with the rows of x staged times the router mask (weight > 0, as the
+// reference masks: a weight that underflowed to 0 masks its row) and, for
+// the fused (E, D, 2, F) GLU weights, a second pass over the up half
+// whose epilogue multiplies into the stored act(gate).  Like the
+// reference it reads every expert's weights whether or not a token chose
+// the expert, so its bound is every expert's bytes.  The combine sums
+// expert_out[e] * router[:, e] in the order e = 0..E-1.  The kinds are
+// compiled only into the extended instantiations of the kernel (a
+// template on EXT), with the matmul's tail pass for a store width that is
+// not a whole number of float4 groups (granite's odd vocabulary makes the
+// masked-store chunk 1 column); the host picks them for a plan with a
+// top-k (TOPK > 0) or such a chunk, so the dense kernels keep the code
+// and registers they had.
+//
 // Numerics follow the reference in float32: no TF32, no fast math, GELU
 // in its tanh form.  A task's arithmetic does not depend on W, so the
 // outputs are bitwise equal across W.
@@ -150,6 +172,7 @@ struct Statics {
   long long pt_off;      // heap offset of the pop trace
   long long ctl_off;     // heap offset of the ticket
   long long n_tasks;     // T: pops that end the launch
+  long long topk;        // experts a token row routes to (kind 9)
 };
 
 // Dynamic shared memory: [descriptor row | block-reduction words]
@@ -257,8 +280,10 @@ __device__ float block_sum(float v, float* scal) {
 // One pass over RP rows of x (staged in shared memory).  Thread (ks, jt)
 // owns CPT float4 column groups and the K rows ks, ks + nks, ...; the
 // weights are read-only for the whole launch, so they stream through the
-// non-coherent load path.
-template <int CPT, int UNROLL>
+// non-coherent load path.  MUL_OUT (the expert GEMM's up pass): the
+// epilogue multiplies the sum into the output already stored, with no
+// bias and no activation.
+template <int CPT, int UNROLL, bool MUL_OUT = false>
 __device__ void mm_pass(float* heap, const long long* d, long long r0,
                         int rp, long long K, long long ncg, const Smem& sm) {
   const int tid = threadIdx.x;
@@ -327,23 +352,58 @@ __device__ void mm_pass(float* heap, const long long* d, long long r0,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         const long long j = grp * VEC + e;
-        const float bias = d[10] >= 0 ? heap[d[10] + j] : 0.0f;
+        if constexpr (MUL_OUT) {
 #pragma unroll
-        for (int r = 0; r < RP; ++r)
-          if (r < rp)
-            heap[d[4] + (r0 + r) * d[5] + j] =
-                act(acc[r][c][e] + bias, d[14]);
+          for (int r = 0; r < RP; ++r)
+            if (r < rp) {
+              float* o = heap + d[4] + (r0 + r) * d[5] + j;
+              *o = *o * acc[r][c][e];
+            }
+        } else {
+          const float bias = d[10] >= 0 ? heap[d[10] + j] : 0.0f;
+#pragma unroll
+          for (int r = 0; r < RP; ++r)
+            if (r < rp)
+              heap[d[4] + (r0 + r) * d[5] + j] =
+                  act(acc[r][c][e] + bias, d[14]);
+        }
       }
     }
   }
 }
 
+// The last columns [c0, ws) of a store width that is not a whole number
+// of float4 groups (a tile whose width the STORE_CH chunks do not round
+// to 4, as the last tile of an odd vocabulary): one warp a (row, column),
+// its lanes striding K, for at most RP * (VEC - 1) dot products.
+__device__ void mm_tail(float* heap, const long long* d, long long r0,
+                        int rp, long long K, long long c0, long long ws,
+                        const Smem& sm) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const long long pairs = rp * (ws - c0);
+  for (long long p = wid; p < pairs; p += NWARP) {
+    const long long r = p / (ws - c0), j = c0 + p % (ws - c0);
+    float acc = 0.0f;
+    for (long long k = lane; k < K; k += 32)
+      acc = fmaf(sm.x[r * K + k], __ldg(heap + d[8] + k * d[9] + j), acc);
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      const float bias = d[10] >= 0 ? heap[d[10] + j] : 0.0f;
+      heap[d[4] + (r0 + r) * d[5] + j] = act(acc + bias, d[14]);
+    }
+  }
+}
+
+// EXT: the tail pass for the columns past the whole float4 groups;
+// without it the store width is a whole number of groups (the host picks
+// the EXT kernel otherwise).
+template <bool EXT>
 __device__ void k_matmul(float* heap, const long long* d, const Statics& S,
                          const Smem& sm) {
   const long long m = d[1], K = d[3];
   const long long ws = store_width(d[2], S);
   if (ws <= 0 || m <= 0) return;
-  const long long ncg = ws / VEC;      // ws % VEC == 0: checked at load
+  const long long ncg = ws / VEC;
   for (long long r0 = 0; r0 < m; r0 += RP) {
     const int rp = static_cast<int>(lmin(RP, m - r0));
     __syncthreads();                    // x and red are free
@@ -351,8 +411,16 @@ __device__ void k_matmul(float* heap, const long long* d, const Statics& S,
       for (long long k = threadIdx.x; k < K; k += NT)
         sm.x[r * K + k] = r < rp ? heap[d[6] + (r0 + r) * d[7] + k] : 0.0f;
     __syncthreads();
-    if (ncg <= NT) mm_pass<1, 16>(heap, d, r0, rp, K, ncg, sm);
-    else mm_pass<2, 8>(heap, d, r0, rp, K, ncg, sm);
+    if constexpr (EXT) {
+      if (ncg > 0) {
+        if (ncg <= NT) mm_pass<1, 16>(heap, d, r0, rp, K, ncg, sm);
+        else mm_pass<2, 8>(heap, d, r0, rp, K, ncg, sm);
+      }
+      if (ncg * VEC < ws) mm_tail(heap, d, r0, rp, K, ncg * VEC, ws, sm);
+    } else {
+      if (ncg <= NT) mm_pass<1, 16>(heap, d, r0, rp, K, ncg, sm);
+      else mm_pass<2, 8>(heap, d, r0, rp, K, ncg, sm);
+    }
   }
 }
 
@@ -537,6 +605,119 @@ __device__ void k_embed(float* heap, const long long* d, const Statics& S) {
   }
 }
 
+// ---- kind 9: router logits -> dense top-k softmax weights --------------
+// One warp per row; lane l holds expert columns l, l + 32, l + 64, l + 96.
+constexpr int TOPK_CPL = 4;            // columns a lane: E <= 128
+
+__device__ __forceinline__ float neg_inf() {
+  return __uint_as_float(0xff800000u);
+}
+
+__device__ void k_softmax_topk(float* heap, const long long* d,
+                               const Statics& S) {
+  const long long m = d[1], n = d[2];
+  const long long ws = store_width(n, S);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (long long r = wid; r < m; r += NWARP) {
+    const float* x = heap + d[6] + r * d[7];
+    float v[TOPK_CPL], orig[TOPK_CPL];
+    unsigned chosen = 0;
+#pragma unroll
+    for (int c = 0; c < TOPK_CPL; ++c) {
+      const long long col = lane + 32 * c;
+      orig[c] = col < n ? x[col] : neg_inf();
+      v[c] = orig[c];
+    }
+    float top = 0.0f, sum = 0.0f;
+    for (long long i = 0; i < S.topk; ++i) {
+      // this lane's first maximum, then the warp's: the larger value, or
+      // on equal values the lower column
+      float best = v[0];
+      int at = lane;
+#pragma unroll
+      for (int c = 1; c < TOPK_CPL; ++c)
+        if (v[c] > best) { best = v[c]; at = lane + 32 * c; }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+        const int oa = __shfl_xor_sync(0xffffffffu, at, o);
+        if (ob > best || (ob == best && oa < at)) { best = ob; at = oa; }
+      }
+      if ((at & 31) == lane) {
+        v[at >> 5] = neg_inf();
+        chosen |= 1u << (at >> 5);
+      }
+      if (i == 0) top = best;           // the largest chosen value
+      sum += expf(best - top);
+    }
+#pragma unroll
+    for (int c = 0; c < TOPK_CPL; ++c) {
+      const long long col = lane + 32 * c;
+      if (col < ws)
+        heap[d[4] + r * d[5] + col] =
+            (chosen >> c) & 1u ? expf(orig[c] - top) / sum : 0.0f;
+    }
+    for (long long col = 32 * TOPK_CPL + lane; col < ws; col += 32)
+      heap[d[4] + r * d[5] + col] = 0.0f;
+  }
+}
+
+// ---- kind 10: one expert's GEMM over the rows its router weight keeps ----
+// out[m, ws] = (x * mask) @ W, or with the fused GLU weights
+// act((x * mask) @ Wg) * ((x * mask) @ Wu): the matmul's pass with the
+// descriptor words it reads (4, 5, 8, 9, 10, 14) rewritten in shared
+// memory, once over Wg (word 8) and once over Wu (word 19).
+__device__ void k_moe_gg(float* heap, const long long* d, const Statics& S,
+                         const Smem& sm) {
+  __shared__ long long dd[16];
+  const long long m = d[1], K = d[3];
+  const long long ws = store_width(d[2], S);
+  if (ws <= 0 || m <= 0) return;
+  const long long ncg = ws / VEC;      // ws % VEC == 0: checked at load
+  const bool glu = d[15] == 1;
+  for (long long r0 = 0; r0 < m; r0 += RP) {
+    const int rp = static_cast<int>(lmin(RP, m - r0));
+    __syncthreads();                    // x, red and dd are free
+    if (threadIdx.x == 0) {
+      dd[4] = d[4]; dd[5] = d[5]; dd[8] = d[8]; dd[9] = d[9];
+      dd[10] = -1;                      // no bias
+      dd[14] = glu ? d[14] : 0;         // a plain expert GEMM: no act
+    }
+    for (int r = 0; r < RP; ++r) {
+      const float mask =
+          r < rp && heap[d[10] + (r0 + r) * d[11]] > 0.0f ? 1.0f : 0.0f;
+      for (long long k = threadIdx.x; k < K; k += NT)
+        sm.x[r * K + k] =
+            r < rp ? heap[d[6] + (r0 + r) * d[7] + k] * mask : 0.0f;
+    }
+    __syncthreads();
+    if (ncg <= NT) mm_pass<1, 16>(heap, dd, r0, rp, K, ncg, sm);
+    else mm_pass<2, 8>(heap, dd, r0, rp, K, ncg, sm);
+    if (glu) {
+      __syncthreads();                  // red is free, act(gate) stored
+      if (threadIdx.x == 0) dd[8] = d[19];
+      __syncthreads();
+      if (ncg <= NT) mm_pass<1, 16, true>(heap, dd, r0, rp, K, ncg, sm);
+      else mm_pass<2, 8, true>(heap, dd, r0, rp, K, ncg, sm);
+    }
+  }
+}
+
+// ---- kind 11: out = sum_e expert_out[e] * router[:, e], e = 0..E-1 -------
+__device__ void k_moe_combine(float* heap, const long long* d,
+                              const Statics& S) {
+  const long long m = d[1], n_exp = d[3];
+  const long long ws = store_width(d[2], S);
+  for (long long i = threadIdx.x; i < m * ws; i += NT) {
+    const long long r = i / ws, j = i % ws;
+    const float* eo = heap + d[6] + r * d[7] + j;
+    const float* rw = heap + d[10] + r * d[11];
+    float acc = 0.0f;
+    for (long long e = 0; e < n_exp; ++e) acc += eo[e * d[15]] * rw[e];
+    heap[d[4] + r * d[5] + j] = acc;
+  }
+}
+
 // The counters thread 0 keeps for its worker and writes into the
 // worker's block at the end of the launch (the same counts the plain
 // version writes): tile transfers, rows in them, primary tiles
@@ -575,6 +756,16 @@ struct Counts {
         r += (S.kch - 1) * m + min(k, S.kch * S.tkc) + bias + m;
         break;
       }
+      case 10: {                        // router column, gate (and up)
+        const int k = static_cast<int>(d[3]);
+        const long long nb = k > 0 ? min(S.kch, (k + S.tkc - 1) / S.tkc) : 0;
+        const long long nw = d[15] == 1 ? 2 : 1;
+        n += 1 + (S.kch - 1) + nw * nb + 1;
+        r += m + (S.kch - 1) * m + nw * min(k, S.kch * S.tkc) + m;
+        break;
+      }
+      case 9: n += 1; r += m; break;
+      case 11: n += 2 * d[3] + 1; r += 2 * d[3] * m + m; break;
       case 2: n += 2; r += 1 + m; break;
       case 3: case 4: n += 2; r += 2 * m; break;
       case 5: n += d[8] >= 0 ? 2 : 1; r += d[8] >= 0 ? 2 * m : m; break;
@@ -640,12 +831,21 @@ __device__ __forceinline__ void wait_event(float* heap, const Statics& S,
   if (S.dyn ? early : seen > want) ++c.violations;
 }
 
+template <bool EXT>
 __device__ __forceinline__ void run_task(long long kind, float* heap,
                                          const long long* d,
                                          const Statics& S, const Smem& sm) {
+  if constexpr (EXT) {
+    switch (kind) {
+      case 9: k_softmax_topk(heap, d, S); return;
+      case 10: k_moe_gg(heap, d, S, sm); return;
+      case 11: k_moe_combine(heap, d, S); return;
+      default: break;
+    }
+  }
   switch (kind) {
     case 0: break;
-    case 1: k_matmul(heap, d, S, sm); break;
+    case 1: k_matmul<EXT>(heap, d, S, sm); break;
     case 2: k_rmsnorm(heap, d, S, sm); break;
     case 3: k_rope(heap, d, S); break;
     case 4: k_glu(heap, d, S); break;
@@ -705,6 +905,7 @@ __device__ void count_rows(const long long* descs, long long first,
 }
 
 // Static scheduler: CTA w walks the grid rows s * W + w in order.
+template <bool EXT>
 __device__ void static_loop(float* heap, const long long* __restrict__ descs,
                             long long num_steps, long long num_workers,
                             const Statics& S, const Smem& sm, long long w,
@@ -730,7 +931,7 @@ __device__ void static_loop(float* heap, const long long* __restrict__ descs,
       if (S.tr_off >= 0) t_start = atomicAdd(heap + S.tr_off, 1.0f);
     }
     __syncthreads();                    // the wait held
-    run_task(kind, heap, d, S, sm);
+    run_task<EXT>(kind, heap, d, S, sm);
     __syncthreads();                    // the task's stores landed
     if (threadIdx.x < DESC_WORDS) sm.d[threadIdx.x] = next;
     if (threadIdx.x == 0) {
@@ -817,6 +1018,7 @@ __device__ __noinline__ void pop_fault(float* heap, const Statics& S,
 // Dynamic scheduler: pop -> wait check -> task -> signal-and-enqueue
 // until all T tasks have been popped.  `c` is in shared memory: thread 32
 // counts the transfers, thread 0 the rest.
+template <bool EXT>
 __device__ void dyn_loop(float* heap, const long long* __restrict__ descs,
                          long long W, const Statics& S, const Smem& sm,
                          long long w, Counts& c) {
@@ -902,7 +1104,7 @@ __device__ void dyn_loop(float* heap, const long long* __restrict__ descs,
       if (S.tr_off >= 0) s_start = atomicAdd(heap + S.tr_off, 1.0f);
     }
     __syncthreads();                    // the wait held
-    run_task(sm.d[0], heap, sm.d, S, sm);
+    run_task<EXT>(sm.d[0], heap, sm.d, S, sm);
     __syncthreads();                    // the task's stores landed
     if (tid == 0) {
       const long long* d = sm.d;
@@ -950,11 +1152,12 @@ __device__ void dyn_loop(float* heap, const long long* __restrict__ descs,
   __syncthreads();                      // thread 32's counts landed
 }
 
-// One kernel per scheduler: each gets its own register allocation, so
-// the dynamic loop's state costs the static loop nothing (a runtime
-// branch between the two loops in one kernel halved the static loop's
-// matmul rate on the card).
-template <bool DYN>
+// One kernel per scheduler and family: each gets its own register
+// allocation, so the dynamic loop's state costs the static loop nothing
+// (a runtime branch between the two loops in one kernel halved the static
+// loop's matmul rate on the card), and the MoE kinds and the matmul's
+// tail cost the dense kernels nothing.
+template <bool DYN, bool EXT>
 __global__ void __launch_bounds__(NT)
 megakernel(float* heap, const long long* __restrict__ descs,
            long long num_steps, long long num_workers, Statics S) {
@@ -970,12 +1173,12 @@ megakernel(float* heap, const long long* __restrict__ descs,
     __shared__ Counts c;
     if (threadIdx.x == 0) c.zero();
     __syncthreads();
-    dyn_loop(heap, descs, num_workers, S, sm, w, c);
+    dyn_loop<EXT>(heap, descs, num_workers, S, sm, w, c);
     if (threadIdx.x == 0) c.store(heap, S, w);
   } else {
     Counts c;                           // thread 0's
     c.zero();
-    static_loop(heap, descs, num_steps, num_workers, S, sm, w, c);
+    static_loop<EXT>(heap, descs, num_steps, num_workers, S, sm, w, c);
     if (threadIdx.x == 0) c.store(heap, S, w);
   }
 }
@@ -1003,24 +1206,29 @@ long long resident_ctas(const void* kernel, size_t smem, cudaError_t* err) {
   return static_cast<long long>(per_sm) * sms;
 }
 
-const void* kernel_for(bool dyn) {
-  return dyn ? reinterpret_cast<const void*>(megakernel<true>)
-             : reinterpret_cast<const void*>(megakernel<false>);
+const void* kernel_for(bool dyn, bool ext) {
+  if (ext)
+    return dyn ? reinterpret_cast<const void*>(megakernel<true, true>)
+               : reinterpret_cast<const void*>(megakernel<false, true>);
+  return dyn ? reinterpret_cast<const void*>(megakernel<true, false>)
+             : reinterpret_cast<const void*>(megakernel<false, false>);
 }
 
 }  // namespace
 
 // The most workers (CTAs) that can be resident at once for a plan with
-// these statics, under either scheduler; negative: minus the CUDA error.
+// these statics, under either scheduler, dense or extended; negative:
+// minus the CUDA error.
 extern "C" long long mk_max_workers(long long tk, long long hd) {
   cudaError_t err;
   long long n = -1;
-  for (const bool dyn : {false, true}) {
-    const long long k = resident_ctas(kernel_for(dyn), smem_bytes(tk, hd),
-                                      &err);
-    if (err != cudaSuccess) return -static_cast<long long>(err);
-    n = n < 0 || k < n ? k : n;
-  }
+  for (const bool dyn : {false, true})
+    for (const bool ext : {false, true}) {
+      const long long k = resident_ctas(kernel_for(dyn, ext),
+                                        smem_bytes(tk, hd), &err);
+      if (err != cudaSuccess) return -static_cast<long long>(err);
+      n = n < 0 || k < n ? k : n;
+    }
   return n;
 }
 
@@ -1033,8 +1241,10 @@ extern "C" long long mk_max_workers(long long tk, long long hd) {
 // (`ov_words` words of overflow after the W pools), with the cursor
 // pairs at `qc_off`, the pop trace at `pt_off`, the ticket at
 // `ctl_off` and the (events, `sched_w`) int32 scheduler table `sched`.
-// `tr_off` < 0: no trace ring.  Returns the CUDA error of the launch (0
-// on success).
+// `tr_off` < 0: no trace ring.  `topk` is the experts a token routes to
+// (kind 9).  `ext` != 0 (a plan with MoE kinds or a masked-store chunk
+// that is not a whole float4 group) selects the extended kernel.  Returns
+// the CUDA error of the launch (0 on success).
 extern "C" int mk_launch(float* heap, const long long* descs,
                          long long num_steps, long long num_workers,
                          long long tn, long long tk, long long hd,
@@ -1046,16 +1256,16 @@ extern "C" int mk_launch(float* heap, const long long* descs,
                          long long qoff, long long ov_words,
                          long long qc_off, long long pt_off,
                          long long ctl_off, long long n_tasks,
-                         void* stream) {
+                         long long topk, long long ext, void* stream) {
   const int tkc = static_cast<int>(tk < 8 ? 8 : (tk > 128 ? 128 : tk));
   const int ts = static_cast<int>(s_max < 128 ? s_max : 128);
   Statics S{tn, tk, hd, g, store_ch, stats_off, event_off, tr_off, spin_ns,
             static_cast<float>(theta), ng, tkc,
             static_cast<int>((tk + tkc - 1) / tkc), ts,
             static_cast<int>((s_max + ts - 1) / ts), dyn, sched, sched_w,
-            qoff, ov_words, qc_off, pt_off, ctl_off, n_tasks};
+            qoff, ov_words, qc_off, pt_off, ctl_off, n_tasks, topk};
   const size_t smem = smem_bytes(tk, hd);
-  const void* kernel = kernel_for(dyn != 0);
+  const void* kernel = kernel_for(dyn != 0, ext != 0);
   cudaError_t err;
   const long long resident = resident_ctas(kernel, smem, &err);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,12 +1,13 @@
 """Megakernel lowering: CompiledTGraph → (heap layout, task descriptors).
 
 The port's copy of ``repro/kernels/megakernel/desc.py`` (the reference)
-for the static W-worker scheduler and the dense task kinds.  Every task
-becomes a ``DESC_WORDS`` = 36-word descriptor; the heap is one flat
-float32 buffer holding every graph tensor.  A tensor of shape
-``(..., cols)`` is stored as ``rows = prod(shape[:-1])`` rows with padded
-row stride ``ld = align128(cols + TN)``, so a TN-wide tile access from
-any legal column stays inside its own row slot.
+for the static W-worker scheduler and the task kinds of the dense and
+MoE families.  Every task becomes a ``DESC_WORDS`` = 36-word
+descriptor; the heap is one flat float32 buffer holding every graph
+tensor.  A tensor of shape ``(..., cols)`` is stored as ``rows =
+prod(shape[:-1])`` rows with padded row stride ``ld = align128(cols +
+TN)``, so a TN-wide tile access from any legal column stays inside its
+own row slot.
 
 What differs from the reference:
 
@@ -22,8 +23,7 @@ What differs from the reference:
   kernel takes per completed task), so that everything before them keeps
   the reference's layout;
 * the multichip stamp is a later slice: asking for it raises
-  ``NotImplementedError``, as do the task kinds of the MoE and SSM
-  families.
+  ``NotImplementedError``, as do the task kinds of the SSM family.
 
 Descriptor words (per kind, see ``lower_tgraph``):
    0 kind   1 m      2 n      3 k      4 out_off 5 ldo
@@ -121,6 +121,9 @@ KIND_CODES = {
     OpKind.ATTENTION_DECODE: 6,
     OpKind.CACHE_UPDATE: 7,
     OpKind.EMBED_LOOKUP: 8,
+    OpKind.SOFTMAX_TOPK: 9,
+    OpKind.MOE_GATHER_GEMM: 10,
+    OpKind.MOE_COMBINE: 11,
 }
 
 _ACT_IDS = {None: 0, "identity": 0, "silu": 1, "gelu": 2}
@@ -256,7 +259,8 @@ class MegakernelPlan:
 
 #: kinds whose leading operand is a regular (m-row, descriptor-addressed)
 #: tile: code -> index of that operand in ``op.inputs``.  EMBED_LOOKUP is
-#: special-cased (a single token-id row); noop has no primary tile.
+#: special-cased (a single token-id row); MOE_COMBINE and noop have no
+#: primary tile.
 _PRIMARY_ROWS_M = {
     KIND_CODES[OpKind.MATMUL]: 0,
     KIND_CODES[OpKind.RMSNORM]: 0,
@@ -265,6 +269,8 @@ _PRIMARY_ROWS_M = {
     KIND_CODES[OpKind.RESIDUAL_ADD]: 0,      # ELEMENTWISE shares code 5
     KIND_CODES[OpKind.ATTENTION_DECODE]: 0,
     KIND_CODES[OpKind.CACHE_UPDATE]: 1,      # the new K/V rows, not cache
+    KIND_CODES[OpKind.SOFTMAX_TOPK]: 0,
+    KIND_CODES[OpKind.MOE_GATHER_GEMM]: 0,
 }
 
 
@@ -477,6 +483,7 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
         "TN": tn, "TM": max_m, "TK": _align(max_k),
         "HD": cfg.hd, "G": cfg.q_per_kv,
         "THETA": float(cfg.rope_theta),
+        "TOPK": cfg.top_k,
         "EPS": cfg.norm_eps,
         "STORE_CH": store_ch,
     }
@@ -564,6 +571,39 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
             ids, table = sl(0), sl(1)
             d[6] = ids.elem(r0)
             d[8], d[9] = table.elem(0, c0), table.ld
+        elif kind == OpKind.SOFTMAX_TOPK:
+            x = sl(0)
+            d[2] = x.shape[-1]
+            d[3] = op.attrs["top_k"]
+            d[6], d[7] = x.elem(r0, 0), x.ld
+        elif kind == OpKind.MOE_GATHER_GEMM:
+            # one expert's (tokens, F-tile) output over all m tokens
+            e0, f0 = pr.starts[0], pr.starts[2]
+            x, router, w = sl(0), sl(1), sl(2)
+            d[1], d[2] = pr.shape[1], pr.shape[2]
+            d[4], d[5] = out.elem(e0, 0, f0), out.ld
+            if len(x.shape) == 3:    # second gemm: expert-local hidden
+                d[6], d[7] = x.elem(e0, 0, 0), x.ld
+            else:
+                d[6], d[7] = x.elem(0, 0), x.ld
+            d[3] = x.shape[-1]
+            if len(w.shape) == 4:    # fused GLU weights (E, D, 2, F)
+                d[8], d[9] = w.elem(e0, 0, 0, f0), 2 * w.ld
+                d[19] = w.elem(e0, 0, 1, f0)             # the up half
+                d[15] = 1                                # glu flag
+            else:
+                d[8], d[9] = w.elem(e0, 0, f0), w.ld
+                d[19] = -1
+                d[15] = 0
+            d[10], d[11] = router.elem(0, e0), router.ld  # its router column
+            d[14] = _ACT_IDS[op.attrs.get("activation")]
+        elif kind == OpKind.MOE_COMBINE:
+            eo, router = sl(0), sl(1)
+            n_exp, toks, _dm = eo.shape
+            d[3] = n_exp
+            d[6], d[7] = eo.elem(0, r0, c0), eo.ld
+            d[15] = toks * eo.ld                         # expert stride
+            d[10], d[11] = router.elem(r0, 0), router.ld
 
     # ---- post-pass statics from the descriptor table ----
     kinds = descs[:, 0]
@@ -571,7 +611,10 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
     attn = kinds == KIND_CODES[OpKind.ATTENTION_DECODE]
     statics["NG"] = int(descs[attn, 16].max(initial=1))
     statics["S_MAX"] = int(descs[attn, 3].max(initial=1))
-    mm = kinds == KIND_CODES[OpKind.MATMUL]
+    comb = kinds == KIND_CODES[OpKind.MOE_COMBINE]
+    statics["E_MAX"] = int(descs[comb, 3].max(initial=1))
+    mm = np.isin(kinds, (KIND_CODES[OpKind.MATMUL],
+                         KIND_CODES[OpKind.MOE_GATHER_GEMM]))
     statics["TK"] = _align(max(statics["TK"],
                                int(descs[mm, 3].max(initial=1))))
 

@@ -12,8 +12,9 @@ adds one to the launch count; for a heap on the CPU it runs
 ``megakernel_plain``, and on any other device it raises.  It replaces
 the Pallas megakernel of the JAX package
 (``repro/kernels/megakernel/kernel.py`` ``make_megakernel``) for both
-schedulers and the dense task kinds, with its event counters and trace
-ring.
+schedulers and the task kinds 0-11 (the dense family's and the MoE
+family's router top-k, expert GEMM and combine), with its event counters
+and trace ring.
 
 ``megakernel_plain`` is a Python loop over the reference's grid slots,
 step-major and worker-fastest, that runs each kind with torch ops on
@@ -44,7 +45,8 @@ from .desc import DESC_WORDS, STATS_WORDS, TRACE_HEADER, TRACE_WORDS
 
 __all__ = ["megakernel", "megakernel_plain", "launch_count",
            "reset_launch_count", "check_plan", "check_workers",
-           "max_workers", "MAX_TN", "MAX_HD", "MAX_TK", "SPIN_TIMEOUT_S"]
+           "max_workers", "MAX_TN", "MAX_HD", "MAX_TK", "MAX_EXPERTS",
+           "SPIN_TIMEOUT_S"]
 
 #: limits of the CUDA kernel's tiling: 512 threads × 2 float4 column
 #: groups per matmul thread, 8 head elements per lane in attention, and
@@ -53,6 +55,10 @@ __all__ = ["megakernel", "megakernel_plain", "launch_count",
 MAX_TN = 4096
 MAX_HD = 256
 MAX_TK = 26880
+
+#: the router top-k (kind 9) runs one warp per row with 4 expert columns
+#: a lane
+MAX_EXPERTS = 128
 
 #: deadline of one event wait on the card: a wait longer than this is a
 #: fault (the kernel traps, the next synchronisation raises).  A whole
@@ -83,7 +89,11 @@ def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
     ``MAX_HD``, matmul weights not addressable as float4, or a dynamic
     plan whose pools are not one warp's 128 words, whose row ids are not
     exact in float32 or whose W + 1 pool occupancies do not fit the
-    kernel's scratch."""
+    kernel's scratch, a router wider than ``MAX_EXPERTS`` or a top-k
+    outside 1..E, and expert weights (kind 10: words 8 and 19, row
+    stride word 9) not addressable as float4 or expert tiles whose
+    store width is not a whole number of float4 groups (a matmul tile
+    may be: the kernel finishes its last columns one at a time)."""
     if statics.get("DYN"):
         if statics["QCAP"] != QUEUE_CAP or statics["T_TASKS"] >= 1 << 24 \
                 or statics["W"] >= MAX_DYN_WORKERS:
@@ -97,9 +107,29 @@ def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
     if statics["HD"] > MAX_HD or statics["HD"] % 2:
         raise NotImplementedError(f"head_dim {statics['HD']}")
     mm = descs[descs[:, 0] == 1]
-    if min(statics["STORE_CH"], statics["TN"]) % 4 or \
-            (mm[:, 8] % 4).any() or (mm[:, 9] % 4).any():
-        raise NotImplementedError("matmul weights must be float4-aligned")
+    gg = descs[descs[:, 0] == 10]
+    chw = min(statics["STORE_CH"], statics["TN"])
+    if (mm[:, 8] % 4).any() or (mm[:, 9] % 4).any() or \
+            (gg[:, 8] % 4).any() or (gg[:, 9] % 4).any() or \
+            (gg[gg[:, 19] >= 0, 19] % 4).any() or \
+            (-(-gg[:, 2] // chw) * chw % 4).any():
+        raise NotImplementedError("matmul and expert weights must be "
+                                  "float4-aligned, and expert tiles "
+                                  "whole float4 groups wide")
+    topk = descs[descs[:, 0] == 9]
+    if len(topk) and ((topk[:, 2] > MAX_EXPERTS).any()
+                      or not 1 <= statics["TOPK"] <= topk[:, 2].min()):
+        raise NotImplementedError(
+            f"router top-{statics['TOPK']} of {topk[:, 2].max()} experts")
+
+
+def _extended(statics: Mapping[str, Any]) -> bool:
+    """Whether the plan needs the kernel's extended instantiation: the
+    MoE kinds (a top-k), or a masked-store chunk that is not a whole
+    float4 group (the matmul's tail pass).  The dense one is the kernel
+    as it stood before either."""
+    return statics.get("TOPK", 0) > 0 \
+        or min(statics["STORE_CH"], statics["TN"]) % 4 != 0
 
 
 def max_workers(statics: Mapping[str, Any], device=None) -> int:
@@ -181,7 +211,9 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
                             statics.get("QC_OFF", 0),
                             statics.get("TRACE_OFF", 0),
                             statics.get("CTL_OFF", 0),
-                            statics.get("T_TASKS", 0), stream)
+                            statics.get("T_TASKS", 0),
+                            statics.get("TOPK", 0), int(_extended(statics)),
+                            stream)
     if err != 0:
         raise RuntimeError("megakernel launch failed: "
                            + lib.mk_error_string(err).decode())
@@ -364,7 +396,7 @@ def megakernel_plain(heap: torch.Tensor, descs,
             cnt[0] += n
             cnt[1] += r
             _run_task(d, tile, width, scalar, heap, TN, HD, G, half,
-                      inv_freq)
+                      inv_freq, statics.get("TOPK", 0))
         ring[i] = (w, row, d[0], t_start, tick, src,
                    d[33] if d[32] >= 0 else 0, 0)
         tick += 1
@@ -400,14 +432,20 @@ def _operand_transfers(d, statics, scalar):
     bulk copies: the matmul's A and B tiles per ``TKC``-deep chunk, the
     bias, norm-weight, position, lengths and second-operand rows, the
     attention's K and V tiles per (row, group, ``TS``-position chunk)
-    holding live positions, and the stores.  The CUDA kernel counts the
-    same (``Counts::operands``)."""
+    holding live positions, the expert GEMM's router column and its one
+    or two (gate, up) weight tiles per chunk, the combine's expert tile
+    and router column per expert, and the stores.  The CUDA kernel
+    counts the same (``Counts::task``)."""
     code, m = d[0], d[1]
-    if code == 1:                       # KCH chunks of TKC rows of K
+    if code in (1, 10):                 # KCH chunks of TKC rows of K
         tk = statics["TK"]
         tkc = min(128, max(8, tk))
         kch = -(-tk // tkc)
         nb = min(kch, -(-d[3] // tkc)) if d[3] > 0 else 0
+        if code == 10:                  # router column, gate (and up)
+            nw = 2 if d[15] == 1 else 1
+            return 1 + (kch - 1) + nw * nb + 1, \
+                m + (kch - 1) * m + nw * min(d[3], kch * tkc) + m
         n = (kch - 1) + nb + (1 if d[10] >= 0 else 0) + 1
         return n, (kch - 1) * m + min(d[3], kch * tkc) \
             + (1 if d[10] >= 0 else 0) + m
@@ -432,11 +470,16 @@ def _operand_transfers(d, statics, scalar):
         return 1 + m, 1 + m
     if code == 8:
         return 2 * m, 2 * m
+    if code == 9:
+        return 1, m
+    if code == 11:                      # an expert tile and router column
+        return 2 * d[3] + 1, 2 * d[3] * m + m
     return 0, 0
 
 
-def _run_task(d, tile, width, scalar, heap, TN, HD, G, half, inv_freq):
-    """One task of kind ``d[0]`` (1-8) on the heap, in place."""
+def _run_task(d, tile, width, scalar, heap, TN, HD, G, half, inv_freq,
+              topk):
+    """One task of kind ``d[0]`` (1-11) on the heap, in place."""
     code, m = d[0], d[1]
     if code == 1:                       # matmul + bias + activation
         n, k = d[2], d[3]
@@ -504,5 +547,30 @@ def _run_task(d, tile, width, scalar, heap, TN, HD, G, half, inv_freq):
         for r in range(m):
             src = d[8] + scalar(d[6] + r) * d[9]
             heap[d[4] + r * d[5]:d[4] + r * d[5] + ws] = heap[src:src + ws]
+    elif code == 9:                     # router top-k, softmax, scatter
+        ws = width(d[2])
+        x = tile(d[6], d[7], m, d[2])
+        # a stable descending sort: equal logits in column order, the
+        # reference's first-hit rule
+        order = torch.sort(x, dim=1, descending=True,
+                           stable=True).indices[:, :topk]
+        out = torch.zeros((m, ws), dtype=heap.dtype, device=heap.device)
+        out.scatter_(1, order, torch.softmax(torch.gather(x, 1, order), 1))
+        tile(d[4], d[5], m, ws).copy_(out)
+    elif code == 10:                    # one expert over the routed rows
+        ws, k = width(d[2]), d[3]
+        mask = (tile(d[10], d[11], m, 1) > 0).to(heap.dtype)
+        x = tile(d[6], d[7], m, k) * mask
+        y = x @ tile(d[8], d[9], k, ws)
+        if d[15] == 1:                  # fused GLU: act(x Wg) * (x Wu)
+            y = _act(y, d[14]) * (x @ tile(d[19], d[9], k, ws))
+        tile(d[4], d[5], m, ws).copy_(y)
+    elif code == 11:                    # sum_e expert_out[e] * router[:, e]
+        ws = width(d[2])
+        acc = torch.zeros((m, ws), dtype=heap.dtype, device=heap.device)
+        for e in range(d[3]):
+            acc = acc + tile(d[6] + e * d[15], d[7], m, ws) \
+                * tile(d[10] + e, d[11], m, 1)
+        tile(d[4], d[5], m, ws).copy_(acc)
     else:
         raise NotImplementedError(f"megakernel task kind {code}")

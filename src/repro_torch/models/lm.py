@@ -2,17 +2,19 @@
 prefill path.
 
 It mirrors ``repro/models/lm.py`` (the reference) for the dense family
-(attention + gated MLP in every layer).  The MoE, SSM, hybrid and
-embedding-input families, and M-RoPE, are later slices and raise
-``NotImplementedError``.
+(attention + gated MLP in every layer) and the MoE family (attention +
+a routed-expert FFN, ``models/moe.py``).  The SSM, hybrid and
+embedding-input families, M-RoPE and shared experts are later slices
+and raise ``NotImplementedError``.
 
 Parameters are a flat dict keyed by the decode graph's tensor names
-(``embed``, ``L0.wq``, ``L0.wi_gate``, ..., ``final_ln_w``, ``lm_head``;
-see ``core/lowering.py``), so a megakernel heap slot and a model weight
-are the same tensor: the torch model can run on strided views of the
-heap.  ``params_from_jax`` turns the reference's stacked parameter tree
-(as numpy arrays) into this dict.  The cache keeps the reference's
-``init_cache`` layout, ``{"k", "v"}: (n_blocks, 1, B, S, KV, hd)``.
+(``embed``, ``L0.wq``, ``L0.wi_gate`` or ``L0.router_w``, ...,
+``final_ln_w``, ``lm_head``; see ``core/lowering.py``), so a megakernel
+heap slot and a model weight are the same tensor: the torch model can
+run on strided views of the heap.  ``params_from_jax`` turns the
+reference's stacked parameter tree (as numpy arrays) into this dict.
+The cache keeps the reference's ``init_cache`` layout,
+``{"k", "v"}: (n_blocks, 1, B, S, KV, hd)``.
 
 Unlike the reference, ``prefill_chunk`` updates the cache in place (it
 returns the same dict): a full-width cache is hundreds of megabytes.
@@ -27,8 +29,9 @@ import torch
 
 from ..device import resolve_device
 from .layers import act_fn, apply_rope, chunk_attention, rmsnorm, rope
+from .moe import moe_ffn
 
-__all__ = ["block_structure", "check_dense", "param_specs", "fill_params",
+__all__ = ["block_structure", "check_supported", "param_specs", "fill_params",
            "init_params", "params_from_jax", "init_cache",
            "prefill_chunk", "serve_step"]
 
@@ -51,16 +54,22 @@ def block_structure(cfg) -> Dict[str, Any]:
     }
 
 
-def check_dense(cfg) -> None:
-    """Raise for configurations outside this slice of the port."""
+def check_supported(cfg) -> None:
+    """Raise for configurations outside the ported slices: attention in
+    every layer, and a gated MLP or routed experts (no shared ones) as
+    its FFN."""
     if cfg.embed_input or cfg.mrope_sections is not None:
         raise NotImplementedError(
             f"{cfg.name}: embedding inputs and M-RoPE are not ported yet")
     for i in range(cfg.n_layers):
-        if cfg.layer_kind(i) != "attn" or cfg.ffn_kind(i) != "mlp":
+        if cfg.layer_kind(i) != "attn" \
+                or cfg.ffn_kind(i) not in ("mlp", "moe"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family (attention + MLP in "
-                "every layer) is ported yet")
+                f"{cfg.name}: only the dense and MoE families (attention "
+                "+ MLP or experts in every layer) are ported yet")
+    if cfg.n_shared_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: shared experts are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -72,8 +81,9 @@ def param_specs(cfg) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:
     """Every weight by graph name: (shape, init std), where std ``None``
     means ones (norm weights) and ``0.0`` zeros (biases).  The scales are
     the reference's ``init_params`` scales."""
-    check_dense(cfg)
+    check_supported(cfg)
     d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    e, fe = cfg.n_experts, (cfg.moe_d_ff or cfg.d_ff)
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
     specs: Dict[str, Tuple[Tuple[int, ...], Optional[float]]] = {
         "embed": ((cfg.vocab, d), 0.02)}
@@ -89,9 +99,14 @@ def param_specs(cfg) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:
             specs[f"{L}.bv"] = ((kvd,), 0.0)
         specs[f"{L}.wo"] = ((qd, d), qd ** -0.5)
         specs[f"{L}.ln2_w"] = ((d,), None)
-        specs[f"{L}.wi_gate"] = ((d, f), d ** -0.5)
-        specs[f"{L}.wi_up"] = ((d, f), d ** -0.5)
-        specs[f"{L}.wo2"] = ((f, d), f ** -0.5)
+        if cfg.ffn_kind(i) == "moe":
+            specs[f"{L}.router_w"] = ((d, e), d ** -0.5)
+            specs[f"{L}.moe_w1"] = ((e, d, 2, fe), d ** -0.5)
+            specs[f"{L}.moe_w2"] = ((e, fe, d), fe ** -0.5)
+        else:
+            specs[f"{L}.wi_gate"] = ((d, f), d ** -0.5)
+            specs[f"{L}.wi_up"] = ((d, f), d ** -0.5)
+            specs[f"{L}.wo2"] = ((f, d), f ** -0.5)
     specs["final_ln_w"] = ((d,), None)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((d, cfg.vocab), d ** -0.5)
@@ -132,25 +147,33 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
 def params_from_jax(np_tree, cfg, device=None) -> Dict[str, torch.Tensor]:
     """The reference's parameter tree (``repro.models.init_params``,
     leaves as numpy arrays) as the port's flat float32 dict."""
-    check_dense(cfg)
+    check_supported(cfg)
     device = resolve_device(device)
     st = block_structure(cfg)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     blocks = np_tree["blocks"]
-    attn, mlp = blocks["attn"], blocks["mlp"]
+    attn = blocks["attn"]
     out = {"embed": t(np_tree["embed"]), "final_ln_w": t(np_tree["final_ln"])}
     if not cfg.tie_embeddings:
         out["lm_head"] = t(np_tree["lm_head"])
     for i in range(cfg.n_layers):
         L = f"L{i}"
         blk, pos = divmod(i, st["period"])
-        ai, mi = st["attn_pos"].index(pos), st["mlp_pos"].index(pos)
+        ai = st["attn_pos"].index(pos)
         out[f"{L}.ln_w"] = t(attn["ln"][blk, ai])
         for nm in ("wq", "wk", "wv", "wo"):
             out[f"{L}.{nm}"] = t(attn[nm][blk, ai])
         if cfg.qkv_bias:
             for nm in ("bq", "bk", "bv"):
                 out[f"{L}.{nm}"] = t(attn[nm][blk, ai])
+        if cfg.ffn_kind(i) == "moe":
+            moe, ei = blocks["moe"], st["moe_pos"].index(pos)
+            out[f"{L}.ln2_w"] = t(moe["ln"][blk, ei])
+            out[f"{L}.router_w"] = t(moe["router"][blk, ei])
+            out[f"{L}.moe_w1"] = t(moe["w1"][blk, ei])      # (E, D, 2, F)
+            out[f"{L}.moe_w2"] = t(moe["w2"][blk, ei])      # (E, F, D)
+            continue
+        mlp, mi = blocks["mlp"], st["mlp_pos"].index(pos)
         out[f"{L}.ln2_w"] = t(mlp["ln"][blk, mi])
         wi = np.asarray(mlp["wi"][blk, mi], np.float32)      # (D, 2, F)
         out[f"{L}.wi_gate"], out[f"{L}.wi_up"] = t(wi[:, 0]), t(wi[:, 1])
@@ -161,7 +184,7 @@ def params_from_jax(np_tree, cfg, device=None) -> Dict[str, torch.Tensor]:
 def init_cache(cfg, batch: int, max_seq: int,
                device=None) -> Dict[str, torch.Tensor]:
     """Zeroed float32 KV cache in the reference's stacked layout."""
-    check_dense(cfg)
+    check_supported(cfg)
     device = resolve_device(device)
     st = block_structure(cfg)
     shape = (st["n_blocks"], len(st["attn_pos"]), batch, max_seq,
@@ -203,8 +226,15 @@ def _attn_chunk(h, params, L, cache_k, cache_v, cfg, cos, sin, seq_lens,
     return h + o
 
 
-def _mlp(h, params, L, cfg):
+def _ffn(h, params, L, cfg):
+    """The layer's FFN sub-layer: the gated MLP, or the routed experts
+    over all B·N chunk rows (padding included, as in the reference)."""
     x = rmsnorm(h, params[f"{L}.ln2_w"], cfg.norm_eps, cfg.gemma_norm)
+    if f"{L}.router_w" in params:
+        p = {"router": params[f"{L}.router_w"], "w1": params[f"{L}.moe_w1"],
+             "w2": params[f"{L}.moe_w2"]}
+        return h + moe_ffn(x.reshape(-1, x.shape[-1]), p,
+                           cfg).reshape(h.shape)
     gate = x @ params[f"{L}.wi_gate"]
     up = x @ params[f"{L}.wi_up"]
     return h + (act_fn(cfg.activation)(gate) * up) @ params[f"{L}.wo2"]
@@ -219,9 +249,11 @@ def prefill_chunk(params: Mapping[str, torch.Tensor], cfg,
     tokens (B, N) integer; seq_lens (B,) = live length *before* the chunk
     (token i lands at position seq_lens + i); chunk_lens (B,) = valid
     tokens per request (default N).  Positions >= chunk_lens are padding:
-    they write no cache state and their logits are garbage.  Returns
+    they write no cache state and their logits are garbage (the experts
+    of an MoE layer route them too, so they take expert capacity, as in
+    the reference).  Returns
     (logits (B, N, V) float32, cache), the cache updated in place."""
-    check_dense(cfg)
+    check_supported(cfg)
     h = params["embed"][tokens.long()]
     b, n = h.shape[:2]
     seq_lens = seq_lens.long()
@@ -237,7 +269,7 @@ def prefill_chunk(params: Mapping[str, torch.Tensor], cfg,
         L = f"L{i}"
         h = _attn_chunk(h, params, L, cache["k"][i, 0], cache["v"][i, 0],
                         cfg, cos, sin, seq_lens, valid)
-        h = _mlp(h, params, L, cfg)
+        h = _ffn(h, params, L, cfg)
     h = rmsnorm(h, params["final_ln_w"], cfg.norm_eps, cfg.gemma_norm)
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
     return (h @ head).float(), cache

@@ -420,3 +420,108 @@ def test_dynamic_deadline_fails_the_run(cuda):
     assert "clean launch ok" in proc.stdout and "no fault" not in proc.stdout
     assert "CUDA" in proc.stderr, proc.stderr[-2000:]
     assert took >= SPIN_TIMEOUT_S
+
+
+# ---------------------------------------------------------------------------
+# The MoE kinds (granite-moe-1b-a400m reduced: 4 experts, top-2).
+# ---------------------------------------------------------------------------
+
+
+def _moe_cfg(layers):
+    return dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                               n_layers=layers)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code", [9, 10, 11])
+def test_cuda_moe_kind_matches_plain_version(cuda, code):
+    """Kind 9 (router top-k), 10 (expert GEMM) or 11 (combine) alone: on
+    a heap where the plain version has run the whole step (every input
+    of the kind in place), the table with every other row made a noop
+    runs on the card and in the plain version from the same image.  The
+    outputs agree within 2e-4; the router's zeros are the plain
+    version's, bitwise, with ties among the logits of layer 0 broken to
+    the lower expert."""
+    cfg = _moe_cfg(1)
+    plan = compile_decode_megakernel(cfg, B, S)
+    base = _base_heap(plan, cfg, cuda)
+    ex = MegakernelExecutor(plan, cfg, cuda)
+    ex.upload(base)
+    ex.write_step_inputs(np.array([3, 7]), np.array([1, 12]))
+    megakernel_plain(ex.heap, plan.descs, plan.statics)
+    logits = plan.view(ex.heap, "L0.router_logits")
+    logits[0] = torch.tensor([1.0, 3.0, 3.0, 2.0])       # a tie for first
+    logits[1] = torch.tensor([0.5, -1.0, 0.5, 0.5])      # and for second
+    table = plan.descs.copy()
+    table[table[:, 0] != code, 0] = 0
+    plain = ex.heap.clone()
+    reset_launch_count()
+    megakernel(ex.heap, torch.from_numpy(table).to(cuda), plan.statics)
+    torch.cuda.synchronize()
+    assert launch_count() == 1
+    megakernel_plain(plain, table, plan.statics)
+    out = {9: "L0.router", 10: "L0.eo", 11: "L0.moe_out"}[code]
+    names = [out, "L0.eh"] if code == 10 else [out]
+    for name in names:
+        torch.testing.assert_close(plan.view(ex.heap, name),
+                                   plan.view(plain, name), rtol=2e-4,
+                                   atol=2e-4)
+    if code == 9:
+        got = plan.view(ex.heap, out)
+        assert torch.equal(got == 0, plan.view(plain, out) == 0)
+        assert (got[0] > 0).tolist() == [False, True, True, False]
+        assert (got[1] > 0).tolist() == [True, False, True, False]
+    assert read_stats_block(ex.heap, plan.stats_offset, 1) \
+        == read_stats_block(plain, plan.stats_offset, 1)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_step_bitwise_across_workers_and_schedulers(cuda):
+    """Two MoE layers, one heap image: the static and the dynamic kernel
+    at W ∈ {1, 2, 4, W_max} give bitwise-equal logits, caches and router
+    weights, within 2e-4 of the plain version; pools drained, 0
+    violations."""
+    cfg = _moe_cfg(2)
+    w_max = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = []
+    for w in (1, 2, 4, w_max):
+        p = compile_decode_megakernel(cfg, B, S, num_workers=w)
+        plans += [p, lower_tgraph(p.compiled, cfg, scheduler="dynamic")]
+    base = _base_heap(max(plans, key=lambda p: p.heap_size), cfg, cuda)
+    names = ["logits", "L0.router", "L1.router", "L1.moe_out"] \
+        + plans[0].input_classes()["state"]
+    want = None
+    for plan in plans:
+        run, plain = _step_at(plan, cfg, base, cuda)
+        got = {n: plan.view(run.heap, n).clone() for n in names}
+        want = want or got
+        for n in names:
+            assert torch.equal(got[n], want[n]), (plan.num_workers, n)
+        if plan.dynamic:
+            _check_dynamic(run)
+        else:
+            assert all(c["event_wait_violations"] == 0
+                       for c in run.worker_counters())
+        if plan.num_workers == 1:
+            megakernel_plain(plain, plan.descs, plan.statics,
+                             plan.dyn.sched_table() if plan.dynamic
+                             else None)
+            torch.testing.assert_close(plan.view(run.heap, "logits"),
+                                       plan.view(plain, "logits"),
+                                       rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_matmul_odd_store_width(cuda):
+    """A dense model with a vocabulary of 1027: the LM head's last tile is
+    3 columns wide and the masked-store chunk 1 column, so the wrapper
+    picks the extended kernel, whose matmul tail pass computes all three
+    columns of that tile.  Logits within 2e-4 of the plain version."""
+    cfg = dataclasses.replace(_cfg(1), vocab=1027)
+    plan = compile_decode_megakernel(cfg, B, S)
+    assert plan.statics["STORE_CH"] == 1 and plan.statics["TOPK"] == 0
+    run, plain = _step_at(plan, cfg, _base_heap(plan, cfg, cuda), cuda)
+    megakernel_plain(plain, plan.descs, plan.statics)
+    torch.testing.assert_close(plan.view(run.heap, "logits"),
+                               plan.view(plain, "logits"), rtol=2e-4,
+                               atol=2e-4)
