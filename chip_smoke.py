@@ -46,7 +46,8 @@ for that many workers, and the partitioner picks the width it uses.
    pushes alone), beside the torch Program's step and the plain version;
    the kernel's logits are held to the plain version's within 3e-4, the
    step is timed through the kernel's dense and extended instantiations
-   in ten pairs (the reason the dense ones exist), the per-worker
+   in ten pairs (the reason the dense ones exist; phase 3b times
+   granite's through the extended and the full ones), the per-worker
    counters and the dynamic pop sources are shown, and each task kind is
    timed alone under the static scheduler;
 2b. the same checks on granite-moe-1b-a400m cut to 2 layers at full width
@@ -59,10 +60,25 @@ for that many workers, and the partitioner picks the width it uses.
    timed static and dynamic beside both of its bounds (every expert read,
    as the kernel does, and only the experts the step's routers chose),
    each task kind alone, the overflow pops and steals;
+2c. the same checks on mamba2-2.7b cut to 2 layers at full width (80 SSM
+   heads of 64, N=128, d_inner 5120; the SSM kinds 12-13: the SSD state
+   update and the causal conv step), with A_log, D_skip, dt_bias and the
+   conv biases redrawn per head and channel (their initial values are
+   the same for every head), the SSD states within 2e-4 of the plain
+   version and the conv windows' shifted rows bitwise;
+3c. the SSM slice: the full 64-layer mamba2 served as in phase 3 (a
+   49.8 GB heap: one compile at W_max lowered to both plans on it, never
+   cloned), each decode step within 3e-4 of the torch Program; one step
+   from one state through the static W_max, the W = 1 and the dynamic
+   table gives bitwise-equal logits, conv windows and SSD states, within
+   3e-4 of the plain version (the windows' shifted rows bitwise); the
+   step timed static, dynamic and at W = 1 beside its bound (the
+   weights, the SSD and conv states read and written once), each task
+   kind alone;
 4. prints the bounds of the standalone kernels still to port beside one
    PyTorch call that computes the same function, one JSON line on the
-   kernels (launches on both models' main paths, the largest error
-   against the plain version over both, times, the bounds) and the
+   kernels (launches on the three models' main paths, the largest error
+   against the plain version over all, times, the bounds) and the
    device line last.  Every phase prints its wall time.
 """
 import dataclasses
@@ -120,8 +136,9 @@ def phase_build():
     t0 = time.perf_counter()
     path, out = build_library()
     log(f"phase 1 ok: built {path.name} in {time.perf_counter() - t0:.1f} s")
-    names = {"ILb0ELb0E": "static", "ILb1ELb0E": "dynamic",
-             "ILb0ELb1E": "static extended", "ILb1ELb1E": "dynamic extended"}
+    names = {"ILb0ELi0E": "static", "ILb1ELi0E": "dynamic",
+             "ILb0ELi1E": "static extended", "ILb1ELi1E": "dynamic extended",
+             "ILb0ELi2E": "static full", "ILb1ELi2E": "dynamic full"}
     which = ""
     for line in out.splitlines():
         if "megakernel" in line and ("Compiling" in line
@@ -366,7 +383,10 @@ def phase_dynamic(cfg2, w_max, plans, base, first, toks, lens, tag):
     torch.cuda.empty_cache()
 
     steals = []
+    rec = _recurrent(wide.plan)
     for i in range(50):
+        for n in rec:                   # each launch from the same state
+            wide.plan.view(wide.heap, n).copy_(wide.plan.view(base, n))
         wide.write_step_inputs(toks, lens)
         wide.launch()
         assert torch.equal(wide.plan.view(wide.heap, "logits"),
@@ -388,6 +408,59 @@ def phase_dynamic(cfg2, w_max, plans, base, first, toks, lens, tag):
 def _routers(plan):
     """The MoE layers' router weights (kind 9's outputs) by name."""
     return [n for n in plan.layout if n.endswith(".router")]
+
+
+def _ssm_vectors(plan, heap, seed=SEED + 1):
+    """Redraw A_log, D_skip, dt_bias and the conv biases in ``heap`` per
+    head and channel (U(0, 2.8), U(0.5, 1.5), N(0, 0.5), N(0, 0.1)): the
+    reference initialises each to one value for every head, which would
+    hide a wrong head offset or a dropped bias.  Returns how many vectors
+    were drawn."""
+    gen = torch.Generator(device=heap.device).manual_seed(seed)
+    n = 0
+    for name in plan.input_classes()["weights"]:
+        leaf, v = name.split(".")[-1], plan.view(heap, name)
+        if leaf == "A_log":
+            v.uniform_(0.0, 2.8, generator=gen)
+        elif leaf == "D_skip":
+            v.uniform_(0.5, 1.5, generator=gen)
+        elif leaf == "dt_bias":
+            v.normal_(0.0, 0.5, generator=gen)
+        elif leaf.startswith("conv_b"):
+            v.normal_(0.0, 0.1, generator=gen)
+        else:
+            continue
+        n += 1
+    return n
+
+
+def _recurrent(plan):
+    """The state a step overwrites rather than appends to: the Mamba2
+    layers' conv windows and SSD states (a KV cache update writes the
+    same row again when a step is repeated).  Comparing two runs of one
+    step needs these restored between them."""
+    return [n for n in plan.input_classes()["state"]
+            if not n.endswith(("k_cache", "v_cache"))]
+
+
+def _check_conv_windows(plan, heap, plain):
+    """Each conv step shifted its window by pure copies: in both heaps the
+    new last row is that heap's projection row bitwise, and the rows
+    before it are bitwise the plain version's.  Returns the number of
+    windows checked."""
+    from repro_torch.core.graph import OpKind
+    n = 0
+    for op in plan.compiled.graph.ops:
+        if op.kind != OpKind.CONV1D_UPDATE:
+            continue
+        src, win = op.inputs[0], op.outputs[1]
+        for h in (heap, plain):
+            assert torch.equal(plan.view(h, win)[:, -1],
+                               plan.view(h, src)), win
+        assert torch.equal(plan.view(heap, win)[:, :-1],
+                           plan.view(plain, win)[:, :-1]), win
+        n += 1
+    return n
 
 
 def phase_workers(cfg, w_max, tag):
@@ -414,9 +487,12 @@ def phase_workers(cfg, w_max, tag):
     wide = plans[w_max]
     traced = lower_tgraph(wide.compiled, cfg2, trace=True)
     p1 = plans[1]
+    ssm = {k: p1.statics[k] for k in ("HD_SSM", "N_SSM", "NH_TILE",
+                                       "W_CONV") if k in p1.statics}
     log(f"  heap {traced.heap_size * 4 / 1e9:.2f} GB, statics "
         f"TN={p1.statics['TN']} TM={p1.statics['TM']} TK={p1.statics['TK']}"
-        f" TOPK={p1.statics['TOPK']} E_MAX={p1.statics['E_MAX']}")
+        f" TOPK={p1.statics['TOPK']} E_MAX={p1.statics['E_MAX']}"
+        + "".join(f" {k}={v}" for k, v in ssm.items()))
     if tag == "2":
         phase_faults(wide, w_max)
 
@@ -426,6 +502,7 @@ def phase_workers(cfg, w_max, tag):
     src = MegakernelExecutor(big, cfg2, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     src.init_weights(gen)
+    _ssm_vectors(traced, src.heap)
     for name in traced.input_classes()["state"]:
         traced.view(src.heap, name).normal_(0.0, 1.0, generator=gen)
     base = src.heap
@@ -457,6 +534,9 @@ def phase_workers(cfg, w_max, tag):
                            plan.view(plain, "logits"), 2e-4))
         assert torch.equal(plan.view(ex.heap, "h0"), plan.view(plain, "h0"))
         n_caches = _check_cache_updates(plan, ex.heap, plain, list(lens))
+        n_windows = _check_conv_windows(plan, ex.heap, plain)
+        for n in state:                 # KV caches, conv windows, SSD states
+            _close(plan.view(ex.heap, n), plan.view(plain, n), 2e-4)
         for n in routers:               # the same experts chosen, bitwise
             assert torch.equal(plan.view(ex.heap, n) == 0,
                                plan.view(plain, n) == 0), n
@@ -475,8 +555,9 @@ def phase_workers(cfg, w_max, tag):
             f"{len(routers)} routers "
             f"{'kept' if w == 1 else 'bitwise equal to W=1'}; vs plain "
             f"max_err={errs[-1]:.3e} "
-            f"(<= 2e-4), embedding and {n_caches} cache updates bitwise, "
-            f"the routers' zeros the plain version's; "
+            f"(<= 2e-4), every state within 2e-4, embedding, "
+            f"{n_caches} cache updates and {n_windows} conv windows' "
+            f"copies bitwise, the routers' zeros the plain version's; "
             f"{waits} waits, {sigs} signals, 0 violations")
         del plain, ex_plain
         if w == w_max:
@@ -547,10 +628,13 @@ def _step_work(plan, cfg, lens, heap=None):
     """Bytes a decode step must move and operations it must do, for these
     live lengths: every weight read once (of the embedding table only the
     B gathered rows), the live KV rows read once, the new KV rows and the
-    logits written once; the FLOPs of the matmuls, the expert GEMMs and
-    attention.  MoE: with ``heap`` (after the step), only the experts its
-    routers chose (weight > 0) are read, each over the rows that chose
-    it; without, every expert over every row, as the kernel computes."""
+    logits written once, the Mamba2 layers' SSD states and conv windows
+    read and written once; the FLOPs of the matmuls, the expert GEMMs,
+    attention, the SSD update (6 per state element: decay, outer
+    product, the dot with C) and the conv taps.  MoE: with ``heap``
+    (after the step), only the experts its routers chose (weight > 0)
+    are read, each over the rows that chose it; without, every expert
+    over every row, as the kernel computes."""
     from repro_torch.core.graph import OpKind
     g = plan.compiled.graph
     shape = lambda n: plan.layout[n].shape
@@ -573,9 +657,14 @@ def _step_work(plan, cfg, lens, heap=None):
     kvd, qd = cfg.n_kv_heads * cfg.hd, cfg.n_heads * cfg.hd
     live = int(np.sum(np.asarray(lens) + 1))
     L = cfg.n_layers
+    ssd = sum(size(op.inputs[1]) for op in g.ops
+              if op.kind == OpKind.SSM_UPDATE)      # B·nh·hd·N a layer
+    conv = sum(size(op.inputs[1]) for op in g.ops
+               if op.kind == OpKind.CONV1D_UPDATE)  # B·W·C a layer
     nbytes = 4 * (w_elems + e_elems + B * cfg.d_model + 2 * L * live * kvd
-                  + 2 * L * B * kvd + B * cfg.vocab)
-    flops = 2 * B * mm_elems + e_flops + 4 * L * live * qd
+                  + 2 * L * B * kvd + B * cfg.vocab + 2 * ssd + 2 * conv)
+    flops = 2 * B * mm_elems + e_flops + 4 * L * live * qd + 6 * ssd \
+        + 2 * conv
     return nbytes, flops
 
 
@@ -588,7 +677,7 @@ def _bound(work):
 
 KIND_NAMES = ("noop", "matmul", "rmsnorm", "rope", "glu", "resid",
               "attention", "cache_update", "embed", "topk", "expert_gemm",
-              "combine")
+              "combine", "ssm", "conv")
 
 
 def _kernel_ms(ex, toks, lens, n, descs=None):
@@ -636,30 +725,41 @@ def _time_by_kind(ex, plan, toks, lens):
     return out
 
 
-def _instantiations_ab(ex, exd, toks, lens, pairs=10):
-    """A dense plan's step through the kernel's dense instantiations and
-    through its extended ones (the MoE kinds and the matmul's tail
-    compiled in), static and dynamic: ``pairs`` pairs of 5 launches
-    each, the pair's first side alternating.  Each extended step's
-    logits are held to the dense one's within 3e-4.  Returns
-    {(scheduler, extended): [ms per pair]} and whether all logits were
-    bitwise equal."""
+VARIANTS = ("dense", "extended", "full")   # kernel._variant's 0, 1, 2
+
+
+def _instantiations_ab(ex, exd, toks, lens, sides, pairs=10):
+    """A plan's step through the kernel instantiations it picks and
+    through the next one (``sides``: two of ``VARIANTS``' indices; the
+    extended one adds the MoE kinds and the matmul's tail, the full one
+    the Mamba2 kinds as well), static and dynamic: ``pairs`` pairs of 5
+    launches each, the pair's first side alternating.  Each step's logits
+    are held to the first side's within 3e-4; a plan with recurrent state
+    steps from the same state every time.  Returns {(scheduler,
+    variant): [ms per pair]} and whether all logits were bitwise
+    equal."""
     from repro_torch.megakernel import kernel as mk
-    chosen = mk._extended
+    chosen = mk._variant
+    rec = _recurrent(ex.plan)
+    pre = {n: ex.plan.view(ex.heap, n).clone() for n in rec}
     times, logits, bitwise = {}, {}, True
     try:
         for i in range(pairs):
-            for ext in ((False, True) if i % 2 == 0 else (True, False)):
-                mk._extended = lambda statics, ext=ext: ext
+            for v in (sides if i % 2 == 0 else sides[::-1]):
+                mk._variant = lambda statics, v=v: v
                 for sched, e in (("static", ex), ("dynamic", exd)):
-                    times.setdefault((sched, ext), []).append(
+                    times.setdefault((sched, v), []).append(
                         _kernel_ms(e, toks, lens, 5))
+                    for n, t in pre.items():
+                        e.plan.view(e.heap, n).copy_(t)
+                    e.write_step_inputs(toks, lens)
+                    e.launch()
                     got = e.plan.view(e.heap, "logits").clone()
                     want = logits.setdefault(sched, got)
                     _close(got, want, 3e-4)
                     bitwise = bitwise and torch.equal(got, want)
     finally:
-        mk._extended = chosen
+        mk._variant = chosen
     return times, bitwise
 
 
@@ -675,11 +775,13 @@ def phase_serve(cfg, w_max, tag):
                                         launch_count, lower_tgraph,
                                         megakernel_plain,
                                         reset_launch_count)
+    from repro_torch.megakernel.kernel import _variant
     from repro_torch.runtime import Request, ServingEngine
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     prog = mk_compile(cfg, B, S, backend="megakernel", num_workers=w_max,
                       scheduler="dynamic")
+    compile_s = time.perf_counter() - t0
     dplan = prog.plan
     W = dplan.num_workers
     assert W >= 2, W
@@ -689,7 +791,7 @@ def phase_serve(cfg, w_max, tag):
         f"largest fan-out {dplan.dyn.max_out}, initial ready set "
         f"{sum(map(len, dplan.dyn.initial))} rows, heap "
         f"{dplan.heap_size * 4 / 1e9:.2f} GB "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"(host compile {compile_s:.1f} s)")
     t0 = time.perf_counter()
     plan = lower_tgraph(dplan.compiled, cfg)          # static, same graph
     plan1 = compile_decode_megakernel(cfg, B, S)
@@ -704,8 +806,11 @@ def phase_serve(cfg, w_max, tag):
         f"{plan1.descs.shape[0]} rows ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     prog.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    n_vec = _ssm_vectors(dplan, prog.executor.heap)
     torch.cuda.synchronize()
-    log(f"  weights drawn into the heap in {time.perf_counter() - t0:.1f} s")
+    log(f"  weights drawn into the heap in {time.perf_counter() - t0:.1f} s"
+        + (f" ({n_vec} A_log, D_skip, dt_bias and conv bias vectors "
+           "redrawn per head and channel)" if n_vec else ""))
     ref = mk_compile(cfg, B, S, backend="torch").bind(prog.weight_views())
 
     calls = []
@@ -758,16 +863,28 @@ def phase_serve(cfg, w_max, tag):
     ex1.upload(exd.heap)
     toks, lens = rng.integers(1, cfg.vocab, size=B), np.array([64, 64])
     ragged = np.array([16, 120])
+    rec = _recurrent(plan)
+    pre = {n: plan.view(exd.heap, n).clone() for n in rec}
+
+    def restore():                      # the recurrent state before a step
+        for n, v in pre.items():
+            plan.view(exd.heap, n).copy_(v)
+
     outs = []
     for e in (ex1, ex, exd):
+        restore()
         e.write_step_inputs(toks, lens)
         e.launch()
-        outs.append(plan.view(exd.heap, "logits").clone())
-    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+        outs.append({n: plan.view(exd.heap, n).clone()
+                     for n in ["logits"] + rec})
+    for n in outs[0]:
+        assert torch.equal(outs[0][n], outs[1][n]) \
+            and torch.equal(outs[0][n], outs[2][n]), n
+    del outs
     qc = _check_dynamic(exd)
     log(f"  one step of the static table at W=1 and W={W} and of the "
-        f"dynamic table at W={W} on one heap: logits bitwise equal; "
-        f"dynamic {_pops(qc)}")
+        f"dynamic table at W={W} on one heap: logits and {len(rec)} "
+        f"recurrent states bitwise equal; dynamic {_pops(qc)}")
 
     # time the decode step: static at W_max and W = 1, dynamic at W_max,
     # at equal and ragged lengths, the dynamic walk, the torch Program's
@@ -789,14 +906,19 @@ def phase_serve(cfg, w_max, tag):
                              torch.from_numpy(walk).cuda())
     qc_walk = _check_dynamic(exd)
     ms1 = _kernel_ms(ex1, toks, lens, 2)
+    ms1_ragged = _kernel_ms(ex1, toks, ragged, 2)
     step_ms = _events_ms(lambda: type(prog).step(prog, toks, lens), 3)
+    restore()
     ex.write_step_inputs(toks, lens)
     ex.launch()
     counters = ex.worker_counters()
     waits, sigs = _check_events(plan, counters)
     kernel_logits = plan.view(ex.heap, "logits").clone()
+    kernel_rec = {n: plan.view(ex.heap, n).clone() for n in rec}
     ref.step(toks, lens)                             # warm-up
     library_ms = _events_ms(lambda: ref.step(toks, lens), 5)
+    restore()                           # the plain version's step from it
+    pre.clear()
     ex.write_step_inputs(toks, lens)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -804,6 +926,13 @@ def phase_serve(cfg, w_max, tag):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err30 = _close(kernel_logits, plan.view(ex.heap, "logits"), 3e-4)
+    err_rec = 0.0                       # conv windows and SSD states
+    for n, v in kernel_rec.items():
+        got = plan.view(ex.heap, n)
+        err_rec = max(err_rec, _close(v, got, 3e-4))
+        if ".conv_" in n:               # the window's shifted rows: copies
+            assert torch.equal(v[:, :-1], got[:, :-1]), n
+    kernel_rec.clear()
     # MoE: the bound of the work this step's routers asked for (the
     # experts they chose), beside that of every expert (what the kernel,
     # like the reference's, reads)
@@ -820,29 +949,34 @@ def phase_serve(cfg, w_max, tag):
         f"{bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB, {flops / 1e9:.1f} "
         f"GFLOP)")
     log(f"  decode step at ragged lengths {tuple(ragged)}: static "
-        f"{ms_static_ragged:.3f} ms, dynamic {ms_dyn_ragged:.3f} ms, bound "
+        f"{ms_static_ragged:.3f} ms, dynamic {ms_dyn_ragged:.3f} ms, static "
+        f"at W=1 {ms1_ragged:.3f} ms, bound "
         f"{bound_ragged:.3f} ms{' (routed experts)' if moe else ''}; the "
         f"dynamic walk of the all-noop table "
         f"(pops, pushes, waits and signals alone) {dyn_walk_ms:.3f} ms")
-    if not moe:
-        ab, bitwise = _instantiations_ab(ex, exd, toks, lens)
+    var = _variant(plan.statics)
+    if var < len(VARIANTS) - 1:         # the next variant can run it too
+        sides = (var, var + 1)
+        a, b = (VARIANTS[v] for v in sides)
+        ab, bitwise = _instantiations_ab(ex, exd, toks, lens, sides)
         for sched in ("static", "dynamic"):
-            dense, ext = ab[(sched, False)], ab[(sched, True)]
-            log(f"  {sched} step (64, 64), dense against extended "
-                f"instantiation (MoE kinds and matmul tail compiled in), "
-                f"{len(dense)} pairs of 5 launches, first side alternating:"
-                f" median {np.median(dense):.3f} against "
-                f"{np.median(ext):.3f} ms, dense quartiles "
-                f"{np.percentile(dense, 25):.3f}-"
-                f"{np.percentile(dense, 75):.3f} ms, dense faster in "
-                f"{sum(d < x for d, x in zip(dense, ext))} of {len(dense)}"
-                f" pairs; dense " + " ".join(f"{t:.3f}" for t in dense)
-                + "; extended " + " ".join(f"{t:.3f}" for t in ext))
-        log(f"  dense and extended logits bitwise equal: {bitwise}")
+            mine, other = ab[(sched, sides[0])], ab[(sched, sides[1])]
+            log(f"  {sched} step (64, 64), {a} against {b} instantiation, "
+                f"{len(mine)} pairs of 5 launches, first side alternating:"
+                f" median {np.median(mine):.3f} against "
+                f"{np.median(other):.3f} ms, {a} quartiles "
+                f"{np.percentile(mine, 25):.3f}-"
+                f"{np.percentile(mine, 75):.3f} ms, {a} faster in "
+                f"{sum(d < x for d, x in zip(mine, other))} of {len(mine)}"
+                f" pairs; {a} " + " ".join(f"{t:.3f}" for t in mine)
+                + f"; {b} " + " ".join(f"{t:.3f}" for t in other))
+        log(f"  {a} and {b} logits bitwise equal: {bitwise}")
     log(f"  dynamic pop sources (last timed launch): equal lengths "
         f"{_pops(qc)}; ragged {_pops(qc_ragged)}; walk {_pops(qc_walk)}")
-    log(f"  kernel vs plain at {L} layers: logits max_err={err30:.3e}; "
-        f"peak memory {peak_gb:.2f} GB")
+    log(f"  kernel vs plain at {L} layers: logits max_err={err30:.3e}"
+        + (f", {len(rec)} conv windows and SSD states max_err="
+           f"{err_rec:.3e} (<= 3e-4), the windows' shifted rows bitwise"
+           if rec else "") + f"; peak memory {peak_gb:.2f} GB")
     if moe:
         gg = plan.descs[:, 0] == 10
         steps = gg.reshape(-1, W).any(1)
@@ -891,18 +1025,19 @@ def phase_serve(cfg, w_max, tag):
             f"heap's routing, {masked:.3f} ms with every row masked (all "
             f"router weights 0)")
     log(f"phase {tag} ok ({cfg.name})")
-    out = {"launches": launches, "max_abs_err": err30, "ms": ms,
+    out = {"launches": launches, "max_abs_err": max(err30, err_rec),
+           "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms, "workers": W, "ms_w1": ms1,
-           "ms_dyn": ms_dyn, "ms_dyn_ragged": ms_dyn_ragged,
+           "ms_w1_ragged": ms1_ragged, "ms_dyn": ms_dyn,
+           "ms_dyn_ragged": ms_dyn_ragged,
            "ms_static_ragged": ms_static_ragged, "dyn_walk_ms": dyn_walk_ms,
-           "bound_ragged_ms": bound_ragged, "served_max_err": worst}
-    if not moe:
-        med = lambda k: float(np.median(ab[k]))
-        out.update({"ms_ab_dense": med(("static", False)),
-                    "ms_ab_extended": med(("static", True)),
-                    "ms_dyn_ab_dense": med(("dynamic", False)),
-                    "ms_dyn_ab_extended": med(("dynamic", True))})
+           "bound_ragged_ms": bound_ragged, "served_max_err": worst,
+           "compile_s": compile_s}
+    if var < len(VARIANTS) - 1:
+        for (sched, v), t in ab.items():
+            key = "ms_ab_" if sched == "static" else "ms_dyn_ab_"
+            out[key + VARIANTS[v]] = float(np.median(t))
     if moe:
         out.update({"bound_all_experts_ms": bound_all_ms,
                     "expert_gemm_routed_ms": routed,
@@ -980,6 +1115,9 @@ def main() -> int:
     k = timed("phase 3", phase_serve, dense, w_max, "3")
     err2b = timed("phase 2b", phase_workers, granite, w_max, "2b")
     kb = timed("phase 3b", phase_serve, granite, w_max, "3b")
+    mamba = get_config("mamba2-2.7b")
+    err2c = timed("phase 2c", phase_workers, mamba, w_max, "2c")
+    kc = timed("phase 3c", phase_serve, mamba, w_max, "3c")
     lib = timed("standalone bounds", standalone_bounds)
     for row in lib:
         log("  still to port: %s at %s: %d bytes, %d FLOP, bound %.6f ms "
@@ -987,14 +1125,14 @@ def main() -> int:
     kernel = {"name": "megakernel", "route": "cuda",
               "source": "src/repro_torch/megakernel/csrc/megakernel.cu",
               "replaces": "src/repro/kernels/megakernel/kernel.py:1175",
-              "kinds": "0-11"}
+              "kinds": "0-13"}
     # the top-level times are deepseek-7b's (the dense slice); each
     # model's own numbers follow under "models"
     kernel.update(k)
-    kernel["launches"] = k["launches"] + kb["launches"]
+    kernel["launches"] = k["launches"] + kb["launches"] + kc["launches"]
     kernel["max_abs_err"] = max(k["max_abs_err"], err2, kb["max_abs_err"],
-                                err2b)
-    kernel["models"] = {dense.name: k, granite.name: kb}
+                                err2b, kc["max_abs_err"], err2c)
+    kernel["models"] = {dense.name: k, granite.name: kb, mamba.name: kc}
     log(f"chip_smoke took {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": [kernel]}))
     log(json.dumps({"ok": True, "device": {

@@ -15,9 +15,10 @@ returns a stateful Program; the two backends are interchangeable:
 
 The megakernel Program, at W=4 under each scheduler, is held against the
 torch Program, which reads the same weights as views of the heap, within
-3e-4 at every step, for a dense model and an MoE model (at ``capacity_factor = n_experts``, the
-dropless convention: the megakernel never drops a token).  Imports no
-JAX.
+3e-4 at every step, for a dense model, an MoE model (at
+``capacity_factor = n_experts``, the dropless convention: the megakernel
+never drops a token) and a Mamba2 model (the SSD state update and the
+causal conv step, kinds 12-13).  Imports no JAX.
 """
 import argparse
 import dataclasses
@@ -41,7 +42,7 @@ def main() -> None:
     args = ap.parse_args()
     device = "cpu" if args.cpu else None          # the card otherwise
     B, S = 2, 16
-    for name in ("deepseek-7b", "granite-moe-1b-a400m"):
+    for name in ("deepseek-7b", "granite-moe-1b-a400m", "mamba2-2.7b"):
         cfg = get_config(name).reduced()
         if cfg.n_experts:
             cfg = dataclasses.replace(cfg,

@@ -1,8 +1,8 @@
 """Lowering: ModelConfig → kernel-level decode-step ComputationGraph.
 
-The port's copy of ``repro/core/lowering.py`` for the dense and MoE
-families (the SSM, shared-expert and embedding-input branches and TP
-AllReduce insertion are later slices and raise).  The graph's tensor
+The port's copy of ``repro/core/lowering.py`` for the dense, MoE and
+SSM families (the hybrid, shared-expert and embedding-input branches and
+TP AllReduce insertion are later slices and raise).  The graph's tensor
 names double as binding keys and as the port's parameter names, so
 ``decode_bindings`` is the parameter dict plus the cache and the
 per-step inputs.
@@ -40,7 +40,8 @@ def build_decode_graph(
     # ---- graph inputs ----
     g.add_tensor("tokens", (b,), "int32", is_input=True)
     g.add_tensor("embed", (cfg.vocab, d), is_input=True)
-    g.add_tensor("positions", (b,), "int32", is_input=True)
+    if any(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)):
+        g.add_tensor("positions", (b,), "int32", is_input=True)
     g.add_tensor("seq_lens", (b,), "int32", is_input=True)
     g.add_tensor("live_lens", (b,), "int32", is_input=True)  # seq_lens + 1
 
@@ -64,6 +65,56 @@ def build_decode_graph(
         g.add_op(OpKind.MATMUL, ins, [out], **kw)
         return out
 
+    def ssm_mixer(L: str, x: str) -> str:
+        """The Mamba2 mixer of layer ``L`` on the normed input ``x``: the
+        five input projections (dt with its bias), the three conv steps,
+        the SSD state update, the gate, the gated norm and out_proj;
+        returns the mixer's output tensor."""
+        din, nh = cfg.d_inner, cfg.ssm_nheads
+        gn = cfg.ssm_ngroups * cfg.ssm_state
+        w = cfg.ssm_conv
+        z = matmul(x, f"{L}.zproj", f"{L}.z", din)
+        xp = matmul(x, f"{L}.xproj", f"{L}.xp", din)
+        bp = matmul(x, f"{L}.bproj", f"{L}.bp", gn)
+        cp = matmul(x, f"{L}.cproj", f"{L}.cp", gn)
+        dt = matmul(x, f"{L}.dtproj", f"{L}.dt", nh, bias=f"{L}.dt_bias")
+        conv_outs = {}
+        for tag, src, width in (("x", xp, din), ("b", bp, gn),
+                                ("c", cp, gn)):
+            g.add_tensor(f"{L}.conv_{tag}_state", (b, w, width),
+                         is_input=True)
+            g.add_tensor(f"{L}.conv_w{tag}", (w, width), is_input=True)
+            g.add_tensor(f"{L}.conv_b{tag}", (width,), is_input=True)
+            g.add_tensor(f"{L}.conv_{tag}", (b, width))
+            g.add_tensor(f"{L}.conv_{tag}_state2", (b, w, width))
+            g.add_op(OpKind.CONV1D_UPDATE,
+                     [src, f"{L}.conv_{tag}_state", f"{L}.conv_w{tag}",
+                      f"{L}.conv_b{tag}"],
+                     [f"{L}.conv_{tag}", f"{L}.conv_{tag}_state2"],
+                     activation="silu")
+            g.mark_output(f"{L}.conv_{tag}_state2")
+            conv_outs[tag] = f"{L}.conv_{tag}"
+        sshape = (b, nh, cfg.ssm_head_dim, cfg.ssm_state)
+        g.add_tensor(f"{L}.ssm_state", sshape, is_input=True)
+        g.add_tensor(f"{L}.A_log", (nh,), is_input=True)
+        g.add_tensor(f"{L}.D_skip", (nh,), is_input=True)
+        g.add_tensor(f"{L}.y", (b, din))
+        g.add_tensor(f"{L}.ssm_state2", sshape)
+        g.add_op(OpKind.SSM_UPDATE,
+                 [conv_outs["x"], f"{L}.ssm_state", dt, f"{L}.A_log",
+                  conv_outs["b"], conv_outs["c"], f"{L}.D_skip"],
+                 [f"{L}.y", f"{L}.ssm_state2"],
+                 head_dim=cfg.ssm_head_dim, col_align=cfg.ssm_head_dim)
+        g.mark_output(f"{L}.ssm_state2")
+        g.add_tensor(f"{L}.gated", (b, din))
+        g.add_op(OpKind.GLU_MUL, [z, f"{L}.y"], [f"{L}.gated"],
+                 activation="silu")
+        g.add_tensor(f"{L}.gnorm_w", (din,), is_input=True)
+        g.add_tensor(f"{L}.gn", (b, din))
+        g.add_op(OpKind.RMSNORM, [f"{L}.gated", f"{L}.gnorm_w"],
+                 [f"{L}.gn"], eps=cfg.norm_eps)
+        return matmul(f"{L}.gn", f"{L}.out_proj", f"{L}.o", d)
+
     for i in range(cfg.n_layers):
         L = f"L{i}"
         g.add_tensor(f"{L}.ln_w", (d,), is_input=True)
@@ -71,6 +122,12 @@ def build_decode_graph(
         g.add_op(OpKind.RMSNORM, [h, f"{L}.ln_w"], [f"{L}.x"],
                  eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
         x = f"{L}.x"
+        if cfg.layer_kind(i) == "ssm":
+            o = ssm_mixer(L, x)
+            g.add_tensor(f"{L}.h", (b, d))
+            g.add_op(OpKind.RESIDUAL_ADD, [h, o], [f"{L}.h"])
+            h = f"{L}.h"
+            continue                    # mixer-only: no FFN (checked)
         bq = f"{L}.bq" if cfg.qkv_bias else ""
         bk = f"{L}.bk" if cfg.qkv_bias else ""
         bv = f"{L}.bv" if cfg.qkv_bias else ""
@@ -162,13 +219,22 @@ def build_decode_graph(
 
 def state_map(cfg):
     """One entry per graph state tensor: its input/output names and where
-    it lives in the ``init_cache`` dict (leaf key + (block, index))."""
+    it lives in the ``init_cache`` dict (leaf key + (block, index)), as
+    the reference's ``api/program.py`` ``_state_map``."""
     st = block_structure(cfg)
     out = []
     for i in range(cfg.n_layers):
+        L = f"L{i}"
         blk, pos = divmod(i, st["period"])
+        if cfg.layer_kind(i) == "ssm":
+            si = st["ssm_pos"].index(pos)
+            names = [(f"{L}.conv_{t}_state", f"conv_{t}") for t in "xbc"] \
+                + [(f"{L}.ssm_state", "ssm")]
+            out += [{"in": name, "out": name + "2", "key": key, "blk": blk,
+                     "idx": si} for name, key in names]
+            continue
         ai = st["attn_pos"].index(pos)
-        for name, key in ((f"L{i}.k_cache", "k"), (f"L{i}.v_cache", "v")):
+        for name, key in ((f"{L}.k_cache", "k"), (f"{L}.v_cache", "v")):
             out.append({"in": name, "out": name + "2", "key": key,
                         "blk": blk, "idx": ai})
     return out
@@ -179,7 +245,8 @@ def decode_bindings(cfg, params: Mapping[str, torch.Tensor],
                     positions=None) -> Dict[str, torch.Tensor]:
     """A tensor for every graph input of ``build_decode_graph``: the
     weights as given (graph-named), the cache leaves reshaped to the
-    graph's (B, S, KV·hd) state tensors, and the per-step inputs."""
+    graph's state tensors ((B, S, KV·hd) KV caches, (B, W, C) conv
+    windows, (B, nh, hd, N) SSD states), and the per-step inputs."""
     check_supported(cfg)
     lens = torch.as_tensor(seq_lens, dtype=torch.int32)
     out: Dict[str, torch.Tensor] = dict(params)
@@ -192,5 +259,7 @@ def decode_bindings(cfg, params: Mapping[str, torch.Tensor],
         seq_lens if positions is None else positions, dtype=torch.int32)
     for ent in state_map(cfg):
         leaf = cache[ent["key"]][ent["blk"], ent["idx"]]
-        out[ent["in"]] = leaf.reshape(leaf.shape[0], leaf.shape[1], -1)
+        if ent["key"] in ("k", "v"):    # (B, S, KV, hd) -> (B, S, KV·hd)
+            leaf = leaf.reshape(leaf.shape[0], leaf.shape[1], -1)
+        out[ent["in"]] = leaf
     return out

@@ -6,12 +6,14 @@
 // kernel.py:1175), for the static W-worker scheduler, the dynamic
 // scheduler (its pop at kernel.py:411-499, `_push` at :1039, the
 // signal-and-enqueue at :1063 and the dynamic trace record at :1104) and
-// the task kinds 0-11: the dense family's 0-8 (noop, matmul + bias +
+// the task kinds 0-13: the dense family's 0-8 (noop, matmul + bias +
 // activation, rmsnorm, rope, glu, residual/scale-add, GQA decode
-// attention, KV cache update, embedding) and the MoE family's 9-11 (the
+// attention, KV cache update, embedding), the MoE family's 9-11 (the
 // router's top-k softmax, `k_softmax_topk` at kernel.py:896; the expert
 // GEMM, `k_moe_gg` at :914; the weighted combine, `k_moe_combine` at
-// :947), with the in-heap event wait and signal and the trace ring.
+// :947) and the SSM family's 12-13 (the Mamba2 SSD state update, `k_ssm`
+// at :959; the causal conv step, `k_conv` at :998), with the in-heap
+// event wait and signal and the trace ring.
 //
 // Design: one CTA of 512 threads per worker, all W CTAs resident at once
 // (a cooperative launch, which refuses a grid that cannot be).  Under the
@@ -108,11 +110,29 @@
 // the expert, so its bound is every expert's bytes.  The combine sums
 // expert_out[e] * router[:, e] in the order e = 0..E-1.  The kinds are
 // compiled only into the extended instantiations of the kernel (a
-// template on EXT), with the matmul's tail pass for a store width that is
-// not a whole number of float4 groups (granite's odd vocabulary makes the
-// masked-store chunk 1 column); the host picks them for a plan with a
-// top-k (TOPK > 0) or such a chunk, so the dense kernels keep the code
-// and registers they had.
+// template on the variant EXT: 0 dense, 1 extended, 2 full), with the
+// matmul's tail pass for a store width that is not a whole number of
+// float4 groups (granite's odd vocabulary makes the masked-store chunk 1
+// column); the host picks them for a plan with a top-k (TOPK > 0) or such
+// a chunk, so the dense kernels keep the code and registers they had.
+//
+// Mamba2 (kinds 12-13).  The SSD state update (`k_ssm` at kernel.py:959)
+// is bound by its state tile, read and written once: per (row, head) a
+// (HD_SSM, N) float32 tile in the heap, 2 * 80 * 64 * 128 floats a layer
+// at mamba2-2.7b's width (5.2 MB each way).  The tile is streamed from
+// device memory, never staged: a group of lanes owns one state row (a
+// lane per float4 of N, 32 lanes at N = 128, 4 at N = 16, so a warp holds
+// 32 / lanes rows), updates it in registers, writes it back in place and
+// reduces y = state . C + D * x over its lanes with __shfl_xor_sync; the
+// 16 warps take the m * NH_TILE * HD_SSM rows of the task in turn.  The
+// causal conv step (`k_conv` at :998) is a thread per (row, channel) that
+// shifts its column of the (W, n) window in place (pure copies, so the
+// window equals the plain version's bitwise) and sums the taps in the
+// reference's order, bias first.  Both are compiled only into the full
+// instantiations (EXT 2: every kind), and not inlined, so that their
+// registers stay out of the matmul's allocation; the host picks the full
+// kernel for a plan with either kind, so the dense and the extended
+// kernels keep the code and registers they had.
 //
 // Numerics follow the reference in float32: no TF32, no fast math, GELU
 // in its tanh form.  A task's arithmetic does not depend on W, so the
@@ -173,6 +193,9 @@ struct Statics {
   long long ctl_off;     // heap offset of the ticket
   long long n_tasks;     // T: pops that end the launch
   long long topk;        // experts a token row routes to (kind 9)
+  // Mamba2 (kinds 12-13): SSD head width, state width N, the heads of one
+  // kind-12 tile, conv taps
+  long long hd_ssm, n_ssm, nh_tile, w_conv;
 };
 
 // Dynamic shared memory: [descriptor row | block-reduction words]
@@ -718,6 +741,96 @@ __device__ void k_moe_combine(float* heap, const long long* d,
   }
 }
 
+// ---- kind 12: Mamba2 SSD state update, NH_TILE heads of m rows --------
+// For row r and head h of the tile, with dt = softplus(dt_raw[r, h]) and
+// dA = exp(-dt * exp(A_log[h])): state[r, h] <- state[r, h] * dA + (dt *
+// x[r, h]) (x) B[r], then y[r, h] = state[r, h] . C[r] + D[h] * x[r, h].
+// Descriptor words: x at 6/7, the state tile at 8 with row stride 9, row
+// (batch) stride 15 and head stride 16, dt at 10/11, A_log at 12, B at
+// 19/20, C at 21/22, D at 23 (< 0: none), y at 4/5.
+__device__ __forceinline__ float softplus_f(float x) {
+  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+}
+
+// The statics it needs come by value (`ws` the store width): a reference
+// to the kernel's parameters would put them in local memory.
+__device__ __noinline__ void k_ssm(float* heap, const long long* d,
+                                   long long ws, long long hds,
+                                   long long nht, long long n_ssm) {
+  const long long m = d[1];
+  const long long n4 = n_ssm / VEC;
+  // lanes a state row: the least power of two >= N / 4, at most 32
+  int lpr = 1;
+  while (lpr < 32 && lpr < n4) lpr <<= 1;
+  const int sub = threadIdx.x % lpr;
+  const long long groups = NT / lpr, g0 = threadIdx.x / lpr;
+  const long long total = m * nht * hds;
+  // every thread runs the same number of rounds: the shuffles need the
+  // whole warp
+  for (long long u0 = 0; u0 < total; u0 += groups) {
+    const long long u = u0 + g0;
+    const bool live = u < total;
+    const long long r = live ? u / (nht * hds) : 0;
+    const long long hh = live ? (u / hds) % nht : 0;
+    const long long p = live ? u % hds : 0;
+    float acc = 0.0f, xv = 0.0f;
+    if (live) {
+      const float dt = softplus_f(heap[d[10] + r * d[11] + hh]);
+      const float da = expf(dt * -expf(heap[d[12] + hh]));
+      xv = heap[d[6] + r * d[7] + hh * hds + p];
+      const float dtx = dt * xv;
+      float4* st = reinterpret_cast<float4*>(
+          heap + d[8] + r * d[15] + hh * d[16] + p * d[9]);
+      const float4* bv = reinterpret_cast<const float4*>(
+          heap + d[19] + r * d[20]);
+      const float4* cv = reinterpret_cast<const float4*>(
+          heap + d[21] + r * d[22]);
+      for (long long q = sub; q < n4; q += lpr) {
+        float4 s = st[q];
+        const float4 b = bv[q], c = cv[q];
+        s.x = s.x * da + dtx * b.x;
+        s.y = s.y * da + dtx * b.y;
+        s.z = s.z * da + dtx * b.z;
+        s.w = s.w * da + dtx * b.w;
+        st[q] = s;
+        acc += s.x * c.x + s.y * c.y + s.z * c.z + s.w * c.w;
+      }
+    }
+    for (int o = lpr / 2; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (live && sub == 0) {
+      const float dsk = d[23] >= 0 ? heap[d[23] + hh] : 0.0f;
+      heap[d[4] + r * d[5] + hh * hds + p] = acc + dsk * xv;
+    }
+  }
+  for (long long i = threadIdx.x; i < m * ws; i += NT) {   // past the heads
+    const long long r = i / ws, j = i % ws;
+    if (j >= nht * hds) heap[d[4] + r * d[5] + j] = 0.0f;
+  }
+}
+
+// ---- kind 13: causal depthwise conv step, m rows of n channels ----------
+// window[r] <- [window[r][1:], x[r]] in place, y[r] = silu(bias + sum_j
+// window[r][j] * w[j]).  Words: x at 6/7, the window at 8 with tap stride
+// 9 and row stride 15, the taps w at 10/11, the bias at 12 (< 0: none),
+// y at 4/5.
+__device__ __noinline__ void k_conv(float* heap, const long long* d,
+                                    long long ws, long long taps) {
+  const long long m = d[1];
+  for (long long i = threadIdx.x; i < m * ws; i += NT) {
+    const long long r = i / ws, j = i % ws;
+    float* win = heap + d[8] + r * d[15] + j;
+    float y = d[12] >= 0 ? heap[d[12] + j] : 0.0f;
+    for (long long t = 0; t < taps; ++t) {
+      const float v = t + 1 < taps ? win[(t + 1) * d[9]]
+                                   : heap[d[6] + r * d[7] + j];
+      win[t * d[9]] = v;
+      y = y + v * heap[d[10] + t * d[11] + j];
+    }
+    heap[d[4] + r * d[5] + j] = act(y, 1);
+  }
+}
+
 // The counters thread 0 keeps for its worker and writes into the
 // worker's block at the end of the launch (the same counts the plain
 // version writes): tile transfers, rows in them, primary tiles
@@ -783,6 +896,18 @@ struct Counts {
       }
       case 7: n += 1 + m; r += 1 + m; break;
       case 8: n += 2 * m; r += 2 * m; break;
+      case 12: {                        // A_log, D; per row dt, B, C, the
+        const long long dsk = d[23] >= 0 ? 1 : 0;   // heads' tiles, y
+        n += 1 + dsk + m * (4 + 2 * S.nh_tile);
+        r += 1 + dsk + m * (4 + 2 * S.nh_tile * S.hd_ssm);
+        break;
+      }
+      case 13: {                        // taps, bias; per row the window
+        const long long bias = d[12] >= 0 ? 1 : 0;  // in and out, y
+        n += 1 + bias + 3 * m;
+        r += S.w_conv + bias + m * (2 * S.w_conv + 1);
+        break;
+      }
     }
     bulk += n;
     rows += r;
@@ -831,11 +956,22 @@ __device__ __forceinline__ void wait_event(float* heap, const Statics& S,
   if (S.dyn ? early : seen > want) ++c.violations;
 }
 
-template <bool EXT>
+// EXT: 0 the dense kinds (0-8), 1 with the MoE kinds (9-11) and the
+// matmul's tail pass, 2 with the Mamba2 kinds (12-13) as well.
+template <int EXT>
 __device__ __forceinline__ void run_task(long long kind, float* heap,
                                          const long long* d,
                                          const Statics& S, const Smem& sm) {
-  if constexpr (EXT) {
+  if constexpr (EXT == 2) {
+    switch (kind) {
+      case 12:
+        k_ssm(heap, d, store_width(d[2], S), S.hd_ssm, S.nh_tile, S.n_ssm);
+        return;
+      case 13: k_conv(heap, d, store_width(d[2], S), S.w_conv); return;
+      default: break;
+    }
+  }
+  if constexpr (EXT >= 1) {
     switch (kind) {
       case 9: k_softmax_topk(heap, d, S); return;
       case 10: k_moe_gg(heap, d, S, sm); return;
@@ -845,7 +981,7 @@ __device__ __forceinline__ void run_task(long long kind, float* heap,
   }
   switch (kind) {
     case 0: break;
-    case 1: k_matmul<EXT>(heap, d, S, sm); break;
+    case 1: k_matmul<(EXT >= 1)>(heap, d, S, sm); break;
     case 2: k_rmsnorm(heap, d, S, sm); break;
     case 3: k_rope(heap, d, S); break;
     case 4: k_glu(heap, d, S); break;
@@ -905,7 +1041,7 @@ __device__ void count_rows(const long long* descs, long long first,
 }
 
 // Static scheduler: CTA w walks the grid rows s * W + w in order.
-template <bool EXT>
+template <int EXT>
 __device__ void static_loop(float* heap, const long long* __restrict__ descs,
                             long long num_steps, long long num_workers,
                             const Statics& S, const Smem& sm, long long w,
@@ -1018,7 +1154,7 @@ __device__ __noinline__ void pop_fault(float* heap, const Statics& S,
 // Dynamic scheduler: pop -> wait check -> task -> signal-and-enqueue
 // until all T tasks have been popped.  `c` is in shared memory: thread 32
 // counts the transfers, thread 0 the rest.
-template <bool EXT>
+template <int EXT>
 __device__ void dyn_loop(float* heap, const long long* __restrict__ descs,
                          long long W, const Statics& S, const Smem& sm,
                          long long w, Counts& c) {
@@ -1152,12 +1288,14 @@ __device__ void dyn_loop(float* heap, const long long* __restrict__ descs,
   __syncthreads();                      // thread 32's counts landed
 }
 
-// One kernel per scheduler and family: each gets its own register
+// One kernel per scheduler and variant: each gets its own register
 // allocation, so the dynamic loop's state costs the static loop nothing
 // (a runtime branch between the two loops in one kernel halved the static
-// loop's matmul rate on the card), and the MoE kinds and the matmul's
-// tail cost the dense kernels nothing.
-template <bool DYN, bool EXT>
+// loop's matmul rate on the card), the MoE kinds and the matmul's tail
+// cost the dense kernels nothing, and the Mamba2 kinds cost the extended
+// ones nothing (in one kernel with the MoE kinds they raised the static
+// extended kernel's spill from 100 to 124 bytes).
+template <bool DYN, int EXT>
 __global__ void __launch_bounds__(NT)
 megakernel(float* heap, const long long* __restrict__ descs,
            long long num_steps, long long num_workers, Statics S) {
@@ -1206,24 +1344,27 @@ long long resident_ctas(const void* kernel, size_t smem, cudaError_t* err) {
   return static_cast<long long>(per_sm) * sms;
 }
 
-const void* kernel_for(bool dyn, bool ext) {
-  if (ext)
-    return dyn ? reinterpret_cast<const void*>(megakernel<true, true>)
-               : reinterpret_cast<const void*>(megakernel<false, true>);
-  return dyn ? reinterpret_cast<const void*>(megakernel<true, false>)
-             : reinterpret_cast<const void*>(megakernel<false, false>);
+const void* kernel_for(bool dyn, long long ext) {
+  if (ext == 2)
+    return dyn ? reinterpret_cast<const void*>(megakernel<true, 2>)
+               : reinterpret_cast<const void*>(megakernel<false, 2>);
+  if (ext == 1)
+    return dyn ? reinterpret_cast<const void*>(megakernel<true, 1>)
+               : reinterpret_cast<const void*>(megakernel<false, 1>);
+  return dyn ? reinterpret_cast<const void*>(megakernel<true, 0>)
+             : reinterpret_cast<const void*>(megakernel<false, 0>);
 }
 
 }  // namespace
 
 // The most workers (CTAs) that can be resident at once for a plan with
-// these statics, under either scheduler, dense or extended; negative:
+// these statics, under either scheduler and in every variant; negative:
 // minus the CUDA error.
 extern "C" long long mk_max_workers(long long tk, long long hd) {
   cudaError_t err;
   long long n = -1;
   for (const bool dyn : {false, true})
-    for (const bool ext : {false, true}) {
+    for (const long long ext : {0, 1, 2}) {
       const long long k = resident_ctas(kernel_for(dyn, ext),
                                         smem_bytes(tk, hd), &err);
       if (err != cudaSuccess) return -static_cast<long long>(err);
@@ -1242,9 +1383,11 @@ extern "C" long long mk_max_workers(long long tk, long long hd) {
 // pairs at `qc_off`, the pop trace at `pt_off`, the ticket at
 // `ctl_off` and the (events, `sched_w`) int32 scheduler table `sched`.
 // `tr_off` < 0: no trace ring.  `topk` is the experts a token routes to
-// (kind 9).  `ext` != 0 (a plan with MoE kinds or a masked-store chunk
-// that is not a whole float4 group) selects the extended kernel.  Returns
-// the CUDA error of the launch (0 on success).
+// (kind 9).  `ext` selects the variant: 1 the extended kernel (a plan
+// with the MoE kinds or a masked-store chunk that is not a whole float4
+// group), 2 the full one (a plan with the Mamba2 kinds), 0 the dense.  `hd_ssm`, `n_ssm`, `nh_tile` and `w_conv` shape the
+// Mamba2 kinds (12-13).  Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int mk_launch(float* heap, const long long* descs,
                          long long num_steps, long long num_workers,
                          long long tn, long long tk, long long hd,
@@ -1256,16 +1399,20 @@ extern "C" int mk_launch(float* heap, const long long* descs,
                          long long qoff, long long ov_words,
                          long long qc_off, long long pt_off,
                          long long ctl_off, long long n_tasks,
-                         long long topk, long long ext, void* stream) {
+                         long long topk, long long ext,
+                         long long hd_ssm, long long n_ssm,
+                         long long nh_tile, long long w_conv,
+                         void* stream) {
   const int tkc = static_cast<int>(tk < 8 ? 8 : (tk > 128 ? 128 : tk));
   const int ts = static_cast<int>(s_max < 128 ? s_max : 128);
   Statics S{tn, tk, hd, g, store_ch, stats_off, event_off, tr_off, spin_ns,
             static_cast<float>(theta), ng, tkc,
             static_cast<int>((tk + tkc - 1) / tkc), ts,
             static_cast<int>((s_max + ts - 1) / ts), dyn, sched, sched_w,
-            qoff, ov_words, qc_off, pt_off, ctl_off, n_tasks, topk};
+            qoff, ov_words, qc_off, pt_off, ctl_off, n_tasks, topk,
+            hd_ssm, n_ssm, nh_tile, w_conv};
   const size_t smem = smem_bytes(tk, hd);
-  const void* kernel = kernel_for(dyn != 0, ext != 0);
+  const void* kernel = kernel_for(dyn != 0, ext);
   cudaError_t err;
   const long long resident = resident_ctas(kernel, smem, &err);
   if (err != cudaSuccess) return static_cast<int>(err);

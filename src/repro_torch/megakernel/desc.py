@@ -1,8 +1,8 @@
 """Megakernel lowering: CompiledTGraph → (heap layout, task descriptors).
 
 The port's copy of ``repro/kernels/megakernel/desc.py`` (the reference)
-for the static W-worker scheduler and the task kinds of the dense and
-MoE families.  Every task becomes a ``DESC_WORDS`` = 36-word
+for both schedulers and the task kinds of the dense, MoE and SSM
+families.  Every task becomes a ``DESC_WORDS`` = 36-word
 descriptor; the heap is one flat float32 buffer holding every graph
 tensor.  A tensor of shape ``(..., cols)`` is stored as ``rows =
 prod(shape[:-1])`` rows with padded row stride ``ld = align128(cols +
@@ -23,7 +23,8 @@ What differs from the reference:
   kernel takes per completed task), so that everything before them keeps
   the reference's layout;
 * the multichip stamp is a later slice: asking for it raises
-  ``NotImplementedError``, as do the task kinds of the SSM family.
+  ``NotImplementedError``, as does a task kind outside 0-13 (the COMM
+  kinds).
 
 Descriptor words (per kind, see ``lower_tgraph``):
    0 kind   1 m      2 n      3 k      4 out_off 5 ldo
@@ -124,6 +125,8 @@ KIND_CODES = {
     OpKind.SOFTMAX_TOPK: 9,
     OpKind.MOE_GATHER_GEMM: 10,
     OpKind.MOE_COMBINE: 11,
+    OpKind.SSM_UPDATE: 12,
+    OpKind.CONV1D_UPDATE: 13,
 }
 
 _ACT_IDS = {None: 0, "identity": 0, "silu": 1, "gelu": 2}
@@ -271,6 +274,8 @@ _PRIMARY_ROWS_M = {
     KIND_CODES[OpKind.CACHE_UPDATE]: 1,      # the new K/V rows, not cache
     KIND_CODES[OpKind.SOFTMAX_TOPK]: 0,
     KIND_CODES[OpKind.MOE_GATHER_GEMM]: 0,
+    KIND_CODES[OpKind.SSM_UPDATE]: 0,        # the x tile
+    KIND_CODES[OpKind.CONV1D_UPDATE]: 0,     # the x tile
 }
 
 
@@ -385,6 +390,8 @@ def _emit_events(compiled: CompiledTGraph, grid: np.ndarray, W: int
 #: outputs that alias an input region (in-place state update)
 _ALIAS_OPS = {
     OpKind.CACHE_UPDATE: {0: 0},      # out0 aliases ins[0] (the cache)
+    OpKind.CONV1D_UPDATE: {1: 1},     # new conv window aliases ins[1]
+    OpKind.SSM_UPDATE: {1: 1},        # new SSD state aliases ins[1]
 }
 
 
@@ -483,7 +490,9 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
         "TN": tn, "TM": max_m, "TK": _align(max_k),
         "HD": cfg.hd, "G": cfg.q_per_kv,
         "THETA": float(cfg.rope_theta),
-        "TOPK": cfg.top_k,
+        "HD_SSM": cfg.ssm_head_dim, "N_SSM": cfg.ssm_state,
+        "W_CONV": cfg.ssm_conv, "TOPK": cfg.top_k,
+        "NEG_EXP_A": True,
         "EPS": cfg.norm_eps,
         "STORE_CH": store_ch,
     }
@@ -604,13 +613,45 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
             d[6], d[7] = eo.elem(0, r0, c0), eo.ld
             d[15] = toks * eo.ld                         # expert stride
             d[10], d[11] = router.elem(r0, 0), router.ld
+        elif kind == OpKind.SSM_UPDATE:
+            # NH_TILE heads of one row tile: x, the (hd, N) state tiles
+            # (row and head strides), dt, A_log, B and C rows, D
+            x, state, dt, a_log, bmat, cmat = (sl(i) for i in range(6))
+            h0 = c0 // op.attrs["head_dim"]
+            _b, nh, hd, nst = state.shape
+            d[3] = nst
+            d[6], d[7] = x.elem(r0, c0), x.ld
+            d[8], d[9] = state.elem(r0, h0, 0, 0), state.ld
+            d[15] = nh * hd * state.ld               # batch stride
+            d[16] = hd * state.ld                    # head stride
+            d[10], d[11] = dt.elem(r0, h0), dt.ld
+            d[12] = a_log.elem(h0)
+            d[19], d[20] = bmat.elem(r0, 0), bmat.ld   # group 0 only
+            d[21], d[22] = cmat.elem(r0, 0), cmat.ld
+            d[23] = sl(6).elem(h0) if len(ins) > 6 else -1
+        elif kind == OpKind.CONV1D_UPDATE:
+            x, state, w = sl(0), sl(1), sl(2)
+            _b, wconv, _c = state.shape
+            d[3] = wconv
+            d[6], d[7] = x.elem(r0, c0), x.ld
+            d[8], d[9] = state.elem(r0, 0, c0), state.ld
+            d[15] = wconv * state.ld                 # batch stride
+            d[10], d[11] = w.elem(0, c0), w.ld
+            d[12] = sl(3).elem(c0) if len(ins) > 3 else -1
 
     # ---- post-pass statics from the descriptor table ----
     kinds = descs[:, 0]
+    # port-only: the kinds the table holds (the kernel's instantiation and
+    # its shared memory depend on them)
+    statics["KINDS"] = tuple(sorted(set(kinds.tolist()) - {0}))
     statics["TM"] = int(descs[:, 1].max(initial=1))
     attn = kinds == KIND_CODES[OpKind.ATTENTION_DECODE]
     statics["NG"] = int(descs[attn, 16].max(initial=1))
     statics["S_MAX"] = int(descs[attn, 3].max(initial=1))
+    ssm = kinds == KIND_CODES[OpKind.SSM_UPDATE]
+    if ssm.any():
+        statics["NH_TILE"] = int(
+            (descs[ssm, 2] // max(1, cfg.ssm_head_dim)).max(initial=1))
     comb = kinds == KIND_CODES[OpKind.MOE_COMBINE]
     statics["E_MAX"] = int(descs[comb, 3].max(initial=1))
     mm = np.isin(kinds, (KIND_CODES[OpKind.MATMUL],

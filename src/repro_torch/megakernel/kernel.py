@@ -12,9 +12,10 @@ adds one to the launch count; for a heap on the CPU it runs
 ``megakernel_plain``, and on any other device it raises.  It replaces
 the Pallas megakernel of the JAX package
 (``repro/kernels/megakernel/kernel.py`` ``make_megakernel``) for both
-schedulers and the task kinds 0-11 (the dense family's and the MoE
-family's router top-k, expert GEMM and combine), with its event counters
-and trace ring.
+schedulers and the task kinds 0-13 (the dense family's, the MoE
+family's router top-k, expert GEMM and combine, and the SSM family's
+Mamba2 state update and conv step), with its event counters and trace
+ring.
 
 ``megakernel_plain`` is a Python loop over the reference's grid slots,
 step-major and worker-fastest, that runs each kind with torch ops on
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models.ssm import softplus
 from ..runtime.dyn_sched import QUEUE_CAP, QUEUE_EMPTY
 from .desc import DESC_WORDS, STATS_WORDS, TRACE_HEADER, TRACE_WORDS
 
@@ -49,7 +51,8 @@ __all__ = ["megakernel", "megakernel_plain", "launch_count",
            "SPIN_TIMEOUT_S"]
 
 #: limits of the CUDA kernel's tiling: 512 threads × 2 float4 column
-#: groups per matmul thread, 8 head elements per lane in attention, and
+#: groups per matmul thread (the widest matmul or expert tile; the other
+#: kinds loop over any width), 8 head elements per lane in attention, and
 #: the two staged rows of x (2 · TK words) beside the K-slice partial
 #: sums (16 KB) in the H100's 227 KB of shared memory
 MAX_TN = 4096
@@ -83,10 +86,25 @@ def reset_launch_count() -> None:
     _LAUNCHES = 0
 
 
+def _kinds(statics: Mapping[str, Any]):
+    """The task kinds of the plan's table (``lower_tgraph`` records them;
+    a table built by hand is taken to hold attention)."""
+    return statics.get("KINDS", (3, 6))
+
+
+def _attn_hd(statics: Mapping[str, Any]) -> int:
+    """The attention head width the kernel's shared memory is sized for:
+    ``HD`` when the plan has rope or attention tasks (kinds 3 and 6),
+    else 0 (an attention-free plan's ``HD`` is ``d_model``)."""
+    return statics["HD"] if {3, 6} & set(_kinds(statics)) else 0
+
+
 def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
-    """Raise for a plan the CUDA kernel's tiling cannot run: tiles wider
-    than ``MAX_TN``, deeper than ``MAX_TK`` or with heads wider than
-    ``MAX_HD``, matmul weights not addressable as float4, or a dynamic
+    """Raise for a plan the CUDA kernel's tiling cannot run: matmul or
+    expert tiles wider than ``MAX_TN``, matmuls deeper than ``MAX_TK``,
+    rope or attention heads wider than ``MAX_HD`` or odd, matmul weights
+    not addressable as float4, SSD state tiles (kind 12) not addressable
+    as float4 or not ``NH_TILE`` heads wide, or a dynamic
     plan whose pools are not one warp's 128 words, whose row ids are not
     exact in float32 or whose W + 1 pool occupancies do not fit the
     kernel's scratch, a router wider than ``MAX_EXPERTS`` or a top-k
@@ -100,15 +118,18 @@ def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
             raise NotImplementedError(
                 f"dynamic plan with QCAP={statics['QCAP']}, "
                 f"T={statics['T_TASKS']}, W={statics['W']}")
-    if statics["TN"] > MAX_TN or statics["TK"] > MAX_TK:
-        raise NotImplementedError(
-            f"tile TN={statics['TN']} TK={statics['TK']} exceeds "
-            f"{MAX_TN}x{MAX_TK}")
-    if statics["HD"] > MAX_HD or statics["HD"] % 2:
-        raise NotImplementedError(f"head_dim {statics['HD']}")
+    chw = min(statics["STORE_CH"], statics["TN"])
     mm = descs[descs[:, 0] == 1]
     gg = descs[descs[:, 0] == 10]
-    chw = min(statics["STORE_CH"], statics["TN"])
+    widest = int(np.minimum(statics["TN"], -(-np.concatenate(
+        [mm[:, 2], gg[:, 2]]) // chw) * chw).max(initial=0))
+    if widest > MAX_TN or statics["TK"] > MAX_TK:
+        raise NotImplementedError(
+            f"matmul tile {widest} wide, TK={statics['TK']}: exceeds "
+            f"{MAX_TN}x{MAX_TK}")
+    hd = _attn_hd(statics)
+    if hd > MAX_HD or hd % 2:
+        raise NotImplementedError(f"head_dim {hd}")
     if (mm[:, 8] % 4).any() or (mm[:, 9] % 4).any() or \
             (gg[:, 8] % 4).any() or (gg[:, 9] % 4).any() or \
             (gg[gg[:, 19] >= 0, 19] % 4).any() or \
@@ -116,6 +137,15 @@ def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
         raise NotImplementedError("matmul and expert weights must be "
                                   "float4-aligned, and expert tiles "
                                   "whole float4 groups wide")
+    ssm = descs[descs[:, 0] == 12]
+    if len(ssm) and (statics["N_SSM"] % 4 or not statics["NEG_EXP_A"]
+                     or (ssm[:, [8, 9, 15, 16, 19, 20, 21, 22]] % 4).any()
+                     or (ssm[:, 2] != statics["NH_TILE"]
+                         * statics["HD_SSM"]).any()):
+        raise NotImplementedError(
+            "SSD state tiles must be float4-addressable (N and every state, "
+            "B and C offset and stride a multiple of 4), A = -exp(A_log), "
+            "and every tile NH_TILE heads wide")
     topk = descs[descs[:, 0] == 9]
     if len(topk) and ((topk[:, 2] > MAX_EXPERTS).any()
                       or not 1 <= statics["TOPK"] <= topk[:, 2].min()):
@@ -123,22 +153,26 @@ def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
             f"router top-{statics['TOPK']} of {topk[:, 2].max()} experts")
 
 
-def _extended(statics: Mapping[str, Any]) -> bool:
-    """Whether the plan needs the kernel's extended instantiation: the
-    MoE kinds (a top-k), or a masked-store chunk that is not a whole
-    float4 group (the matmul's tail pass).  The dense one is the kernel
-    as it stood before either."""
-    return statics.get("TOPK", 0) > 0 \
-        or min(statics["STORE_CH"], statics["TN"]) % 4 != 0
+def _variant(statics: Mapping[str, Any]) -> int:
+    """The kernel instantiation the plan needs: 2 (full) for the Mamba2
+    kinds (12-13), 1 (extended) for the MoE kinds (a top-k) or a
+    masked-store chunk that is not a whole float4 group (the matmul's
+    tail pass), else 0 (dense).  Each adds its kinds to the one before,
+    and the ones before keep their code and registers."""
+    if {12, 13} & set(_kinds(statics)):
+        return 2
+    return int(statics.get("TOPK", 0) > 0
+               or min(statics["STORE_CH"], statics["TN"]) % 4 != 0)
 
 
 def max_workers(statics: Mapping[str, Any], device=None) -> int:
     """The most CTAs of the kernel that can be resident at once on the
-    card for a plan with these statics (its shared memory per CTA)."""
+    card for a plan with these statics (its shared memory per CTA: the
+    matmul's x rows, or the attention's merge scratch)."""
     from .build import load_library
     lib = load_library()
     with torch.cuda.device(device):
-        n = lib.mk_max_workers(statics["TK"], statics["HD"])
+        n = lib.mk_max_workers(statics["TK"], _attn_hd(statics))
     if n < 0:
         raise RuntimeError("megakernel occupancy query failed: "
                            + lib.mk_error_string(-n).decode())
@@ -197,7 +231,7 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
         err = lib.mk_launch(heap.data_ptr(), descs.data_ptr(),
                             0 if dyn else descs.shape[0] // W, W,
                             statics["TN"],
-                            statics["TK"], statics["HD"], statics["G"],
+                            statics["TK"], _attn_hd(statics), statics["G"],
                             statics["STORE_CH"], statics["STATS_OFF"],
                             statics["EVENT_OFF"],
                             statics["TR_OFF"] if statics.get("TRACE")
@@ -212,8 +246,10 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
                             statics.get("TRACE_OFF", 0),
                             statics.get("CTL_OFF", 0),
                             statics.get("T_TASKS", 0),
-                            statics.get("TOPK", 0), int(_extended(statics)),
-                            stream)
+                            statics.get("TOPK", 0), _variant(statics),
+                            statics.get("HD_SSM", 0), statics.get("N_SSM", 0),
+                            statics.get("NH_TILE", 0),
+                            statics.get("W_CONV", 0), stream)
     if err != 0:
         raise RuntimeError("megakernel launch failed: "
                            + lib.mk_error_string(err).decode())
@@ -396,7 +432,7 @@ def megakernel_plain(heap: torch.Tensor, descs,
             cnt[0] += n
             cnt[1] += r
             _run_task(d, tile, width, scalar, heap, TN, HD, G, half,
-                      inv_freq, statics.get("TOPK", 0))
+                      inv_freq, statics.get("TOPK", 0), statics)
         ring[i] = (w, row, d[0], t_start, tick, src,
                    d[33] if d[32] >= 0 else 0, 0)
         tick += 1
@@ -434,8 +470,10 @@ def _operand_transfers(d, statics, scalar):
     attention's K and V tiles per (row, group, ``TS``-position chunk)
     holding live positions, the expert GEMM's router column and its one
     or two (gate, up) weight tiles per chunk, the combine's expert tile
-    and router column per expert, and the stores.  The CUDA kernel
-    counts the same (``Counts::task``)."""
+    and router column per expert, the SSD update's A_log and D rows and
+    per row its dt, B and C rows and the ``NH_TILE`` state tiles in and
+    out, the conv step's taps and bias and per row its window in and out,
+    and the stores.  The CUDA kernel counts the same (``Counts::task``)."""
     code, m = d[0], d[1]
     if code in (1, 10):                 # KCH chunks of TKC rows of K
         tk = statics["TK"]
@@ -474,12 +512,20 @@ def _operand_transfers(d, statics, scalar):
         return 1, m
     if code == 11:                      # an expert tile and router column
         return 2 * d[3] + 1, 2 * d[3] * m + m
+    if code == 12:
+        nht, dsk = statics["NH_TILE"], int(d[23] >= 0)
+        return 1 + dsk + m * (4 + 2 * nht), \
+            1 + dsk + m * (4 + 2 * nht * statics["HD_SSM"])
+    if code == 13:
+        wc, bias = statics["W_CONV"], int(d[12] >= 0)
+        return 1 + bias + 3 * m, wc + bias + m * (2 * wc + 1)
     return 0, 0
 
 
 def _run_task(d, tile, width, scalar, heap, TN, HD, G, half, inv_freq,
-              topk):
-    """One task of kind ``d[0]`` (1-11) on the heap, in place."""
+              topk, statics=None):
+    """One task of kind ``d[0]`` (1-13) on the heap, in place; the
+    Mamba2 kinds (12-13) read their shapes from ``statics``."""
     code, m = d[0], d[1]
     if code == 1:                       # matmul + bias + activation
         n, k = d[2], d[3]
@@ -572,5 +618,34 @@ def _run_task(d, tile, width, scalar, heap, TN, HD, G, half, inv_freq,
             acc = acc + tile(d[6] + e * d[15], d[7], m, ws) \
                 * tile(d[10] + e, d[11], m, 1)
         tile(d[4], d[5], m, ws).copy_(acc)
+    elif code == 12:                    # Mamba2 SSD update, NH_TILE heads
+        ws, nht = width(d[2]), statics["NH_TILE"]
+        hds, ns = statics["HD_SSM"], statics["N_SSM"]
+        x = tile(d[6], d[7], m, nht * hds).reshape(m, nht, hds)
+        state = torch.as_strided(heap, (m, nht, hds, ns),
+                                 (d[15], d[16], d[9], 1), d[8])
+        dt = softplus(tile(d[10], d[11], m, nht))             # (m, nht)
+        da = torch.exp(dt * -torch.exp(heap[d[12]:d[12] + nht]))
+        bvec, cvec = tile(d[19], d[20], m, ns), tile(d[21], d[22], m, ns)
+        new = state * da[..., None, None] \
+            + (dt[..., None] * x)[..., None] * bvec[:, None, None, :]
+        y = (new @ cvec[:, None, :, None])[..., 0]        # (m, nht, hds)
+        if d[23] >= 0:
+            y = y + heap[d[23]:d[23] + nht][None, :, None] * x
+        state.copy_(new)
+        out = torch.zeros((m, ws), dtype=heap.dtype, device=heap.device)
+        out[:, :nht * hds] = y.reshape(m, nht * hds)
+        tile(d[4], d[5], m, ws).copy_(out)
+    elif code == 13:                    # causal conv step, window in place
+        ws, wc = width(d[2]), statics["W_CONV"]
+        win = torch.as_strided(heap, (m, wc, ws), (d[15], d[9], 1), d[8])
+        new = torch.cat([win[:, 1:], tile(d[6], d[7], m, ws)[:, None]], 1)
+        y = heap[d[12]:d[12] + ws].expand(m, ws) if d[12] >= 0 else \
+            torch.zeros((m, ws), dtype=heap.dtype, device=heap.device)
+        for t in range(wc):             # the reference's order, bias first
+            y = y + new[:, t] * heap[d[10] + t * d[11]:
+                                     d[10] + t * d[11] + ws]
+        win.copy_(new)
+        tile(d[4], d[5], m, ws).copy_(F.silu(y))
     else:
         raise NotImplementedError(f"megakernel task kind {code}")

@@ -2,19 +2,22 @@
 prefill path.
 
 It mirrors ``repro/models/lm.py`` (the reference) for the dense family
-(attention + gated MLP in every layer) and the MoE family (attention +
-a routed-expert FFN, ``models/moe.py``).  The SSM, hybrid and
-embedding-input families, M-RoPE and shared experts are later slices
-and raise ``NotImplementedError``.
+(attention + gated MLP in every layer), the MoE family (attention + a
+routed-expert FFN, ``models/moe.py``) and the SSM family (a Mamba2
+mixer and no FFN in every layer, ``models/ssm.py``, one group of B and
+C).  The hybrid and embedding-input families, M-RoPE and shared experts
+are later slices and raise ``NotImplementedError``.
 
 Parameters are a flat dict keyed by the decode graph's tensor names
-(``embed``, ``L0.wq``, ``L0.wi_gate`` or ``L0.router_w``, ...,
-``final_ln_w``, ``lm_head``; see ``core/lowering.py``), so a megakernel
-heap slot and a model weight are the same tensor: the torch model can
-run on strided views of the heap.  ``params_from_jax`` turns the
-reference's stacked parameter tree (as numpy arrays) into this dict.
-The cache keeps the reference's ``init_cache`` layout,
-``{"k", "v"}: (n_blocks, 1, B, S, KV, hd)``.
+(``embed``, ``L0.wq``, ``L0.wi_gate``, ``L0.router_w`` or
+``L0.zproj``, ..., ``final_ln_w``, ``lm_head``; see
+``core/lowering.py``), so a megakernel heap slot and a model weight are
+the same tensor: the torch model can run on strided views of the heap.
+``params_from_jax`` turns the reference's stacked parameter tree (as
+numpy arrays) into this dict.  The cache keeps the reference's
+``init_cache`` layout: ``{"k", "v"}: (n_blocks, 1, B, S, KV, hd)`` for
+attention, ``{"conv_x", "conv_b", "conv_c"}: (n_blocks, 1, B, W, C)``
+and ``"ssm": (n_blocks, 1, B, nh, hd, N)`` for the Mamba2 mixer.
 
 Unlike the reference, ``prefill_chunk`` updates the cache in place (it
 returns the same dict): a full-width cache is hundreds of megabytes.
@@ -30,6 +33,7 @@ import torch
 from ..device import resolve_device
 from .layers import act_fn, apply_rope, chunk_attention, rmsnorm, rope
 from .moe import moe_ffn
+from .ssm import ssm_decode
 
 __all__ = ["block_structure", "check_supported", "param_specs", "fill_params",
            "init_params", "params_from_jax", "init_cache",
@@ -55,21 +59,27 @@ def block_structure(cfg) -> Dict[str, Any]:
 
 
 def check_supported(cfg) -> None:
-    """Raise for configurations outside the ported slices: attention in
-    every layer, and a gated MLP or routed experts (no shared ones) as
-    its FFN."""
+    """Raise for configurations outside the ported slices: attention and
+    a gated MLP or routed experts (no shared ones) in every layer, or a
+    Mamba2 mixer with one group of B and C and no FFN in every layer."""
     if cfg.embed_input or cfg.mrope_sections is not None:
         raise NotImplementedError(
             f"{cfg.name}: embedding inputs and M-RoPE are not ported yet")
-    for i in range(cfg.n_layers):
-        if cfg.layer_kind(i) != "attn" \
-                or cfg.ffn_kind(i) not in ("mlp", "moe"):
-            raise NotImplementedError(
-                f"{cfg.name}: only the dense and MoE families (attention "
-                "+ MLP or experts in every layer) are ported yet")
+    layers = {(cfg.layer_kind(i), cfg.ffn_kind(i))
+              for i in range(cfg.n_layers)}
+    if not (layers <= {("attn", "mlp"), ("attn", "moe")}
+            or layers == {("ssm", "none")}):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense, MoE and SSM families (attention "
+            "+ MLP or experts in every layer, or a Mamba2 mixer alone in "
+            "every layer) are ported yet")
     if cfg.n_shared_experts:
         raise NotImplementedError(
             f"{cfg.name}: shared experts are not ported yet")
+    if ("ssm", "none") in layers and cfg.ssm_ngroups != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba2 with {cfg.ssm_ngroups} groups of B and C "
+            "is not ported yet (one group only)")
 
 
 # ---------------------------------------------------------------------------
@@ -90,6 +100,9 @@ def param_specs(cfg) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:
     for i in range(cfg.n_layers):
         L = f"L{i}"
         specs[f"{L}.ln_w"] = ((d,), None)
+        if cfg.layer_kind(i) == "ssm":
+            specs.update(_ssm_specs(cfg, L))
+            continue
         specs[f"{L}.wq"] = ((d, qd), d ** -0.5)
         specs[f"{L}.wk"] = ((d, kvd), d ** -0.5)
         specs[f"{L}.wv"] = ((d, kvd), d ** -0.5)
@@ -110,6 +123,26 @@ def param_specs(cfg) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:
     specs["final_ln_w"] = ((d,), None)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((d, cfg.vocab), d ** -0.5)
+    return specs
+
+
+def _ssm_specs(cfg, L: str):
+    """The Mamba2 mixer's weights of layer ``L`` at the reference's init
+    scales (``repro/models/lm.py`` ``init_params``)."""
+    d, din, nh = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
+    gn, w = cfg.ssm_ngroups * cfg.ssm_state, cfg.ssm_conv
+    specs = {f"{L}.zproj": ((d, din), d ** -0.5),
+             f"{L}.xproj": ((d, din), d ** -0.5),
+             f"{L}.bproj": ((d, gn), d ** -0.5),
+             f"{L}.cproj": ((d, gn), d ** -0.5),
+             f"{L}.dtproj": ((d, nh), d ** -0.5),
+             f"{L}.dt_bias": ((nh,), 0.0)}
+    for tag, width in (("x", din), ("b", gn), ("c", gn)):
+        specs[f"{L}.conv_w{tag}"] = ((w, width), 0.2)
+        specs[f"{L}.conv_b{tag}"] = ((width,), 0.0)
+    specs.update({f"{L}.A_log": ((nh,), 0.0), f"{L}.D_skip": ((nh,), None),
+                  f"{L}.gnorm_w": ((din,), None),
+                  f"{L}.out_proj": ((din, d), din ** -0.5)})
     return specs
 
 
@@ -144,6 +177,15 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     return params
 
 
+#: the port's (graph) names of a Mamba2 layer's weights -> the
+#: reference's keys in ``blocks["ssm"]``
+_SSM_NAMES = {nm: nm for nm in (
+    "zproj", "xproj", "bproj", "cproj", "dtproj", "dt_bias", "conv_wx",
+    "conv_bx", "conv_wb", "conv_bb", "conv_wc", "conv_bc", "A_log",
+    "D_skip", "out_proj")}
+_SSM_NAMES["gnorm_w"] = "gnorm"
+
+
 def params_from_jax(np_tree, cfg, device=None) -> Dict[str, torch.Tensor]:
     """The reference's parameter tree (``repro.models.init_params``,
     leaves as numpy arrays) as the port's flat float32 dict."""
@@ -152,13 +194,19 @@ def params_from_jax(np_tree, cfg, device=None) -> Dict[str, torch.Tensor]:
     st = block_structure(cfg)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     blocks = np_tree["blocks"]
-    attn = blocks["attn"]
     out = {"embed": t(np_tree["embed"]), "final_ln_w": t(np_tree["final_ln"])}
     if not cfg.tie_embeddings:
         out["lm_head"] = t(np_tree["lm_head"])
     for i in range(cfg.n_layers):
         L = f"L{i}"
         blk, pos = divmod(i, st["period"])
+        if cfg.layer_kind(i) == "ssm":
+            ssm, si = blocks["ssm"], st["ssm_pos"].index(pos)
+            out[f"{L}.ln_w"] = t(ssm["ln"][blk, si])
+            for nm, src in _SSM_NAMES.items():
+                out[f"{L}.{nm}"] = t(ssm[src][blk, si])
+            continue
+        attn = blocks["attn"]
         ai = st["attn_pos"].index(pos)
         out[f"{L}.ln_w"] = t(attn["ln"][blk, ai])
         for nm in ("wq", "wk", "wv", "wo"):
@@ -183,14 +231,29 @@ def params_from_jax(np_tree, cfg, device=None) -> Dict[str, torch.Tensor]:
 
 def init_cache(cfg, batch: int, max_seq: int,
                device=None) -> Dict[str, torch.Tensor]:
-    """Zeroed float32 KV cache in the reference's stacked layout."""
+    """Zeroed float32 decode state in the reference's stacked layout: the
+    KV cache of the attention layers, the conv windows and SSD states of
+    the Mamba2 layers."""
     check_supported(cfg)
     device = resolve_device(device)
     st = block_structure(cfg)
-    shape = (st["n_blocks"], len(st["attn_pos"]), batch, max_seq,
-             cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=torch.float32, device=device),
-            "v": torch.zeros(shape, dtype=torch.float32, device=device)}
+    nb = st["n_blocks"]
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                       device=device)
+    cache = {}
+    if st["attn_pos"]:
+        shape = (nb, len(st["attn_pos"]), batch, max_seq, cfg.n_kv_heads,
+                 cfg.hd)
+        cache["k"], cache["v"] = zeros(*shape), zeros(*shape)
+    if st["ssm_pos"]:
+        ns, w = len(st["ssm_pos"]), cfg.ssm_conv
+        gn = cfg.ssm_ngroups * cfg.ssm_state
+        cache["conv_x"] = zeros(nb, ns, batch, w, cfg.d_inner)
+        cache["conv_b"] = zeros(nb, ns, batch, w, gn)
+        cache["conv_c"] = zeros(nb, ns, batch, w, gn)
+        cache["ssm"] = zeros(nb, ns, batch, cfg.ssm_nheads,
+                             cfg.ssm_head_dim, cfg.ssm_state)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +303,25 @@ def _ffn(h, params, L, cfg):
     return h + (act_fn(cfg.activation)(gate) * up) @ params[f"{L}.wo2"]
 
 
+def _ssm_chunk(h, params, L, states, cfg, valid):
+    """Mamba2 sub-layer for an N-token chunk, h (B, N, D): ``ssm_decode``
+    stepped over the chunk positions, as the reference's ``_ssm_chunk``.
+    ``states`` (conv_x, conv_b, conv_c, ssm) are views of the cache,
+    updated in place; a padding position (``valid`` False) leaves its
+    request's states as they were."""
+    p = {nm: params[f"{L}.{nm}"] for nm in _SSM_NAMES}
+    p["gnorm"] = p.pop("gnorm_w")
+    x = rmsnorm(h, params[f"{L}.ln_w"], cfg.norm_eps, cfg.gemma_norm)
+    ys = []
+    for i in range(h.shape[1]):
+        y, new = ssm_decode(x[:, i], states, p, cfg)
+        for k, v in new.items():
+            keep = valid[:, i].reshape((-1,) + (1,) * (v.dim() - 1))
+            states[k].copy_(torch.where(keep, v, states[k]))
+        ys.append(y)
+    return h + torch.stack(ys, dim=1)
+
+
 def prefill_chunk(params: Mapping[str, torch.Tensor], cfg,
                   cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                   seq_lens: torch.Tensor,
@@ -249,11 +331,12 @@ def prefill_chunk(params: Mapping[str, torch.Tensor], cfg,
     tokens (B, N) integer; seq_lens (B,) = live length *before* the chunk
     (token i lands at position seq_lens + i); chunk_lens (B,) = valid
     tokens per request (default N).  Positions >= chunk_lens are padding:
-    they write no cache state and their logits are garbage (the experts
-    of an MoE layer route them too, so they take expert capacity, as in
-    the reference).  Returns
+    they write no cache or SSM state and their logits are garbage (the
+    experts of an MoE layer route them too, so they take expert
+    capacity, as in the reference).  Returns
     (logits (B, N, V) float32, cache), the cache updated in place."""
     check_supported(cfg)
+    st = block_structure(cfg)
     h = params["embed"][tokens.long()]
     b, n = h.shape[:2]
     seq_lens = seq_lens.long()
@@ -263,13 +346,24 @@ def prefill_chunk(params: Mapping[str, torch.Tensor], cfg,
              < chunk_lens.long()[:, None])
     if cfg.gemma_norm:
         h = h * math.sqrt(cfg.d_model)
-    pos = seq_lens[:, None] + torch.arange(n, device=h.device)[None, :]
-    cos, sin = rope(pos, cfg.hd, cfg.rope_theta)
+    if st["attn_pos"]:
+        pos = seq_lens[:, None] + torch.arange(n, device=h.device)[None, :]
+        cos, sin = rope(pos, cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
         L = f"L{i}"
-        h = _attn_chunk(h, params, L, cache["k"][i, 0], cache["v"][i, 0],
-                        cfg, cos, sin, seq_lens, valid)
-        h = _ffn(h, params, L, cfg)
+        blk, at = divmod(i, st["period"])
+        if cfg.layer_kind(i) == "ssm":
+            si = st["ssm_pos"].index(at)
+            states = {k: cache[k][blk, si]
+                      for k in ("conv_x", "conv_b", "conv_c", "ssm")}
+            h = _ssm_chunk(h, params, L, states, cfg, valid)
+        else:
+            ai = st["attn_pos"].index(at)
+            h = _attn_chunk(h, params, L, cache["k"][blk, ai],
+                            cache["v"][blk, ai], cfg, cos, sin, seq_lens,
+                            valid)
+        if cfg.ffn_kind(i) != "none":
+            h = _ffn(h, params, L, cfg)
     h = rmsnorm(h, params["final_ln_w"], cfg.norm_eps, cfg.gemma_norm)
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
     return (h @ head).float(), cache

@@ -1,6 +1,7 @@
 """On the card: the hand-written CUDA megakernel against its plain PyTorch
 version, at the reduced size (deepseek-7b reduced: GQA with 4 query heads
-over 2 KV heads), under the static and the dynamic scheduler.  Every test
+over 2 KV heads; granite-moe reduced; mamba2 reduced, and mamba2's kinds
+12-13 at full width), under the static and the dynamic scheduler.  Every test
 here is marked ``gpu`` and skips without a CUDA device; the file imports
 no JAX, so it runs where JAX is absent:
 
@@ -525,3 +526,138 @@ def test_cuda_matmul_odd_store_width(cuda):
     torch.testing.assert_close(plan.view(run.heap, "logits"),
                                plan.view(plain, "logits"), rtol=2e-4,
                                atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# The Mamba2 kinds (mamba2-2.7b reduced: 8 heads of 32, N=16; and at full
+# width: 80 heads of 64, N=128, the x conv 5120 channels wide).
+# ---------------------------------------------------------------------------
+
+
+def _ssm_cfg(layers, full=False):
+    cfg = get_config("mamba2-2.7b")
+    return dataclasses.replace(cfg if full else cfg.reduced(),
+                               n_layers=layers)
+
+
+def _ssm_vectors(plan, heap, seed=5):
+    """A_log, D_skip, dt_bias and the conv biases redrawn per head and
+    channel (their initial values are the same for every head, which
+    would hide a wrong head offset or a dropped bias)."""
+    gen = torch.Generator(device=heap.device).manual_seed(seed)
+    for name in plan.input_classes()["weights"]:
+        leaf, v = name.split(".")[-1], plan.view(heap, name)
+        if leaf == "A_log":
+            v.uniform_(0.0, 2.8, generator=gen)
+        elif leaf == "D_skip":
+            v.uniform_(0.5, 1.5, generator=gen)
+        elif leaf == "dt_bias":
+            v.normal_(0.0, 0.5, generator=gen)
+        elif leaf.startswith("conv_b"):
+            v.normal_(0.0, 0.1, generator=gen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("code", [12, 13])
+def test_cuda_ssm_kind_matches_plain_version(cuda, code, full):
+    """Kind 12 (SSD state update) or 13 (conv step) alone: on a heap where
+    the plain version has run the whole step (every input of the kind in
+    place), the table with every other row made a noop runs on the card
+    and in the plain version from the same image.  Outputs and SSD
+    states agree within 2e-4, the conv windows bitwise, the counters
+    equal."""
+    cfg = _ssm_cfg(1, full)
+    plan = compile_decode_megakernel(cfg, B, 128 if full else S)
+    base = _base_heap(plan, cfg, cuda)
+    _ssm_vectors(plan, base)
+    ex = MegakernelExecutor(plan, cfg, cuda)
+    ex.upload(base)
+    ex.write_step_inputs(np.array([3, 7]), np.array([1, 12]))
+    megakernel_plain(ex.heap, plan.descs, plan.statics)
+    table = plan.descs.copy()
+    table[table[:, 0] != code, 0] = 0
+    plain = ex.heap.clone()
+    reset_launch_count()
+    megakernel(ex.heap, torch.from_numpy(table).to(cuda), plan.statics)
+    torch.cuda.synchronize()
+    assert launch_count() == 1
+    megakernel_plain(plain, table, plan.statics)
+    kind = OpKind.SSM_UPDATE if code == 12 else OpKind.CONV1D_UPDATE
+    widths = set()
+    for op in plan.compiled.graph.ops:
+        if op.kind != kind:
+            continue
+        y, state = op.outputs
+        torch.testing.assert_close(plan.view(ex.heap, y),
+                                   plan.view(plain, y), rtol=2e-4,
+                                   atol=2e-4)
+        if code == 13:
+            assert torch.equal(plan.view(ex.heap, state),
+                               plan.view(plain, state)), state
+        else:
+            torch.testing.assert_close(plan.view(ex.heap, state),
+                                       plan.view(plain, state), rtol=2e-4,
+                                       atol=2e-4)
+        widths.add(plan.layout[y].shape[-1])
+    if full:
+        assert widths == ({cfg.d_inner, cfg.ssm_state} if code == 13
+                          else {cfg.d_inner})
+        assert plan.statics["HD_SSM"] == 64 and plan.statics["N_SSM"] == 128
+    assert read_stats_block(ex.heap, plan.stats_offset, 1) \
+        == read_stats_block(plain, plan.stats_offset, 1)
+
+
+@pytest.mark.gpu
+def test_cuda_ssm_step_bitwise_across_workers_and_schedulers(cuda):
+    """Two Mamba2 layers, one heap image: the static and the dynamic
+    kernel at W ∈ {1, 2, 4, W_max} give bitwise-equal logits, conv windows
+    and SSD states, within 2e-4 of the plain version (the windows' shifted
+    rows bitwise); pools drained, 0 violations."""
+    cfg = _ssm_cfg(2)
+    w_max = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = []
+    for w in (1, 2, 4, w_max):
+        p = compile_decode_megakernel(cfg, B, S, num_workers=w)
+        plans += [p, lower_tgraph(p.compiled, cfg, scheduler="dynamic")]
+    base = _base_heap(max(plans, key=lambda p: p.heap_size), cfg, cuda)
+    _ssm_vectors(plans[0], base)
+    state = plans[0].input_classes()["state"]
+    names = ["logits"] + state
+    want = None
+    for plan in plans:
+        run, plain = _step_at(plan, cfg, base, cuda)
+        got = {n: plan.view(run.heap, n).clone() for n in names}
+        want = want or got
+        for n in names:
+            assert torch.equal(got[n], want[n]), (plan.num_workers, n)
+        if plan.dynamic:
+            _check_dynamic(run)
+        else:
+            assert all(c["event_wait_violations"] == 0
+                       for c in run.worker_counters())
+        if plan.num_workers == 1:
+            megakernel_plain(plain, plan.descs, plan.statics,
+                             plan.dyn.sched_table() if plan.dynamic
+                             else None)
+            for n in names:
+                torch.testing.assert_close(plan.view(run.heap, n),
+                                           plan.view(plain, n), rtol=2e-4,
+                                           atol=2e-4)
+            _check_conv_windows(plan, run.heap, plain)
+
+
+def _check_conv_windows(plan, heap, plain):
+    """The conv steps shifted their windows by pure copies: in each heap
+    the new last row is that heap's projection row (``L.xp``, ``L.bp``,
+    ``L.cp``) bitwise, and the rows before it are bitwise the plain
+    version's."""
+    for op in plan.compiled.graph.ops:
+        if op.kind != OpKind.CONV1D_UPDATE:
+            continue
+        src, win = op.inputs[0], op.outputs[1]
+        for h in (heap, plain):
+            assert torch.equal(plan.view(h, win)[:, -1],
+                               plan.view(h, src)), win
+        assert torch.equal(plan.view(heap, win)[:, :-1],
+                           plan.view(plain, win)[:, :-1]), win

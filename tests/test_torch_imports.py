@@ -19,7 +19,8 @@ bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "repro" or n.startswith("repro."))
 need = ("repro_torch.runtime.dyn_sched", "repro_torch.core.runtime_sim",
-        "repro_torch.models.moe", "repro_torch.core.task_semantics")
+        "repro_torch.models.moe", "repro_torch.models.ssm",
+        "repro_torch.core.task_semantics")
 missing = [m for m in need if m not in sys.modules]
 n = sum(1 for k in sys.modules if k.startswith("repro_torch"))
 print("BAD", bad, "MISSING", missing, "N", n)
@@ -50,9 +51,10 @@ def test_compile_without_device_needs_a_card():
 
 
 def test_later_slices_raise():
-    """The MoE family is ported: granite compiles with both backends.
-    The SSM family (mamba2) is a later slice and raises.  W > 1 workers
-    are ported and compile to a W-worker plan with event counters."""
+    """The MoE and SSM families are ported: granite and mamba2 compile
+    with both backends.  The hybrid family (jamba) and M-RoPE (qwen2-vl)
+    are later slices and raise.  W > 1 workers are ported and compile to
+    a W-worker plan with event counters."""
     from repro_torch.api import compile
     from repro_torch.configs import get_config
     moe = get_config("granite-moe-1b-a400m").reduced()
@@ -60,9 +62,14 @@ def test_later_slices_raise():
     prog = compile(moe, 1, 8, backend="megakernel", device="cpu")
     assert {9, 10, 11} <= set(prog.plan.descs[:, 0].tolist())
     ssm = get_config("mamba2-2.7b").reduced()
-    for backend in ("torch", "megakernel"):
-        with pytest.raises(NotImplementedError):
-            compile(ssm, 1, 8, backend=backend, device="cpu")
+    assert compile(ssm, 1, 8, device="cpu").backend == "torch"
+    prog = compile(ssm, 1, 8, backend="megakernel", device="cpu")
+    assert {12, 13} <= set(prog.plan.descs[:, 0].tolist())
+    for name in ("jamba-1.5-large-398b", "qwen2-vl-2b"):
+        later = get_config(name).reduced()
+        for backend in ("torch", "megakernel"):
+            with pytest.raises(NotImplementedError):
+                compile(later, 1, 8, backend=backend, device="cpu")
     dense = dataclasses.replace(get_config("deepseek-7b").reduced(),
                                 n_layers=1)
     prog = compile(dense, 1, 8, backend="megakernel", device="cpu",
