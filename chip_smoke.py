@@ -75,11 +75,25 @@ for that many workers, and the partitioner picks the width it uses.
    step timed static, dynamic and at W = 1 beside its bound (the
    weights, the SSD and conv states read and written once), each task
    kind alone;
+2d. tensor parallelism over the fused transport (C chips as regions of
+   one heap on the one card, kinds 14-15: the ring send and the
+   all-reduce chunk): deepseek-7b and granite at 2 layers and full width,
+   TP ∈ {1, 2, 4} at W ∈ {1, 2, W_max // C}, from one set of weights and
+   state; logits bitwise equal across TP, W and chips, every collective
+   an exact identity, within 2e-4 of the plain version, kinds 14-15
+   alone bitwise the plain version's (collectives, staging buffers,
+   arrival counters), traced at TP=2 with a clean event order, and chip
+   1's wq scaled to show that its region is its own;
+3d. the TP slice: the full 24-layer granite served at TP=4 through
+   ``compile(..., tp=4)`` as in phase 3b: every decode step bitwise phase
+   3b's and within 3e-4 of the torch Program, the static step timed at
+   TP=2 and TP=4 beside its bound (every chip's bytes and the ring's),
+   kinds 14-15 timed together;
 4. prints the bounds of the standalone kernels still to port beside one
    PyTorch call that computes the same function, one JSON line on the
-   kernels (launches on the three models' main paths, the largest error
-   against the plain version over all, times, the bounds) and the
-   device line last.  Every phase prints its wall time.
+   kernels (launches on the main paths, the largest error against the
+   plain version over all, times, the bounds) and the device line last.
+   Every phase prints its wall time.
 """
 import dataclasses
 import gc
@@ -138,7 +152,8 @@ def phase_build():
     log(f"phase 1 ok: built {path.name} in {time.perf_counter() - t0:.1f} s")
     names = {"ILb0ELi0E": "static", "ILb1ELi0E": "dynamic",
              "ILb0ELi1E": "static extended", "ILb1ELi1E": "dynamic extended",
-             "ILb0ELi2E": "static full", "ILb1ELi2E": "dynamic full"}
+             "ILb0ELi2E": "static full", "ILb1ELi2E": "dynamic full",
+             "ILb0ELi3E": "static multichip"}
     which = ""
     for line in out.splitlines():
         if "megakernel" in line and ("Compiling" in line
@@ -677,7 +692,7 @@ def _bound(work):
 
 KIND_NAMES = ("noop", "matmul", "rmsnorm", "rope", "glu", "resid",
               "attention", "cache_update", "embed", "topk", "expert_gemm",
-              "combine", "ssm", "conv")
+              "combine", "ssm", "conv", "send", "allreduce_chunk")
 
 
 def _kernel_ms(ex, toks, lens, n, descs=None):
@@ -692,7 +707,8 @@ def _kernel_ms(ex, toks, lens, n, descs=None):
         plan = ex.plan
         sched = torch.from_numpy(plan.dyn.sched_table()).cuda() \
             if plan.dynamic else None
-        launch = lambda: megakernel(ex.heap, descs, plan.statics, sched)
+        launch = lambda: megakernel(ex.heap, descs, plan.statics, sched,
+                                    ex._acks)
     times = []
     for i in range(n + 1):
         ex.write_step_inputs(toks, lens)
@@ -712,17 +728,24 @@ def _time_by_kind(ex, plan, toks, lens):
     with every other row turned into a noop (its event words kept, so the
     workers still wait and signal), one launch after a warm-up.  The
     all-noop table is the walk itself (descriptor fetch, barriers, the
-    event protocol).  Run last: the heap's activations are overwritten
-    with partial results."""
+    event protocol).  The COMM kinds (14 send, 15 all-reduce chunk) run
+    together: a ring send of round r >= 1 waits for its receiver's
+    arrivals.  Run last: the heap's activations are overwritten with
+    partial results.  Returns the log entries and {name: ms}."""
     kinds = plan.descs[:, 0]
-    out = []
-    for code in [0] + sorted(set(kinds.tolist()) - {0}):
+    groups = [(c,) for c in [0] + sorted(set(kinds.tolist()) - {0, 14, 15})]
+    if 14 in kinds:
+        groups.append((14, 15))
+    out, times = [], {}
+    for codes in groups:
         table = plan.descs.copy()
-        table[kinds != code, 0] = 0
+        table[~np.isin(kinds, codes), 0] = 0
         ms = _kernel_ms(ex, toks, lens, 1, torch.from_numpy(table).cuda())
-        n = int((kinds == code).sum()) if code else len(kinds)
-        out.append(f"{KIND_NAMES[code]} {ms:.2f} ms/{n}")
-    return out
+        n = int(np.isin(kinds, codes).sum()) if codes[0] else len(kinds)
+        name = "+".join(KIND_NAMES[c] for c in codes)
+        out.append(f"{name} {ms:.2f} ms/{n}")
+        times[name] = ms
+    return out, times
 
 
 VARIANTS = ("dense", "extended", "full")   # kernel._variant's 0, 1, 2
@@ -764,6 +787,10 @@ def _instantiations_ab(ex, exd, toks, lens, sides, pairs=10):
 
 
 PROMPTS = (16, 40, 72, 100)           # ragged prompt lengths, tokens
+
+#: per model served by ``phase_serve``: its decode steps' logits, and one
+#: static step's logits after the run with that step's inputs (host)
+SERVED = {}
 
 
 def phase_serve(cfg, w_max, tag):
@@ -880,6 +907,11 @@ def phase_serve(cfg, w_max, tag):
     for n in outs[0]:
         assert torch.equal(outs[0][n], outs[1][n]) \
             and torch.equal(outs[0][n], outs[2][n]), n
+    # what phase 3d holds its tensor-parallel run to, on the host
+    SERVED[cfg.name] = {
+        "steps": [c[3] for c in calls if c[0] == "step"],
+        "toks": toks, "lens": lens,
+        "static_logits": outs[0]["logits"].cpu()}
     del outs
     qc = _check_dynamic(exd)
     log(f"  one step of the static table at W=1 and W={W} and of the "
@@ -890,6 +922,7 @@ def phase_serve(cfg, w_max, tag):
     # at equal and ragged lengths, the dynamic walk, the torch Program's
     # step and the plain version
     ms = _kernel_ms(ex, toks, lens, 5)
+    SERVED[cfg.name]["ms"] = ms
     ms_dyn = _kernel_ms(exd, toks, lens, 5)
     qc = _check_dynamic(exd)
     ms_static_ragged = _kernel_ms(ex, toks, ragged, 5)
@@ -1007,9 +1040,10 @@ def phase_serve(cfg, w_max, tag):
         f"under its cost model min {min(util):.2f} mean "
         f"{sum(util) / W:.2f} max {max(util):.2f}): "
         + " ".join(p if k == 1 else f"{p} x{k}" for p, k in runs))
+    by_kind, kind_ms = _time_by_kind(ex, plan, toks, lens)
     log(f"  kernel time by kind alone under the static scheduler at W={W} "
         "(kind ms/tasks; noop = the walk of all rows with the event "
-        "protocol): " + ", ".join(_time_by_kind(ex, plan, toks, lens)))
+        "protocol): " + ", ".join(by_kind))
     if moe:
         # does routing change an expert GEMM's time?  Kind 10 alone with
         # the routers the heap holds, then with every router weight 0
@@ -1033,7 +1067,7 @@ def phase_serve(cfg, w_max, tag):
            "ms_dyn_ragged": ms_dyn_ragged,
            "ms_static_ragged": ms_static_ragged, "dyn_walk_ms": dyn_walk_ms,
            "bound_ragged_ms": bound_ragged, "served_max_err": worst,
-           "compile_s": compile_s}
+           "compile_s": compile_s, "walk_ms": kind_ms["noop"]}
     if var < len(VARIANTS) - 1:
         for (sched, v), t in ab.items():
             key = "ms_ab_" if sched == "static" else "ms_dyn_ab_"
@@ -1043,6 +1077,388 @@ def phase_serve(cfg, w_max, tag):
                     "expert_gemm_routed_ms": routed,
                     "expert_gemm_masked_ms": masked})
     return out
+
+
+TP_DEGREES = (1, 2, 4)
+
+
+def _allreduces(plan):
+    """(output, input) of every collective of a TP graph."""
+    from repro_torch.core.graph import OpKind
+    return [(op.outputs[0], op.inputs[0]) for op in plan.compiled.graph.ops
+            if op.kind == OpKind.ALLREDUCE]
+
+
+def _fill_chips(heap, plan, src_plan, src):
+    """Every graph input of ``src_plan``'s heap ``src``, by name, into
+    chip 0's region of ``plan``'s ``heap``, then chip 0's region into the
+    other chips' (one device copy each)."""
+    for name in plan.compiled.graph.inputs:
+        plan.view(heap, name).copy_(src_plan.view(src, name))
+    for c in range(1, plan.n_chips):
+        heap[c * plan.chip_stride:(c + 1) * plan.chip_stride].copy_(
+            heap[:plan.chip_stride])
+
+
+def _check_tp_run(plan, heap, counters, want):
+    """One launch's results on every chip: the logits bitwise ``want``
+    (host), every collective's output bitwise its input (the owner-masked
+    ring is an exact identity when the chips hold the same bits), no
+    violation and the waits and signals the table holds.  Returns the
+    totals (waits, signals)."""
+    for c in range(plan.n_chips):
+        assert torch.equal(plan.view(heap, "logits", c).cpu(), want), c
+        for out, inp in _allreduces(plan):
+            assert torch.equal(plan.view(heap, out, c),
+                               plan.view(heap, inp, c)), (out, c)
+    return _check_events(plan, counters)
+
+
+def _ring_bytes(plan):
+    """Bytes the COMM rows of a step move: each word of a window read once
+    and written once, and an accumulating arrival's destination read as
+    well."""
+    d = plan.descs
+    comm = np.isin(d[:, 0], (14, 15))
+    words = d[comm, 1] * d[comm, 3]
+    acc = (d[comm, 0] == 15) & (d[comm, 14] == 1)
+    return int(4 * (2 * words + acc * words).sum())
+
+
+def phase_tp_workers(cfg, w_max, tag):
+    """Tensor parallelism at 2 layers and full width over the fused
+    transport: TP ∈ {1, 2, 4} at W ∈ {1, 2, W_max // C}, every run from
+    the same weights and state (TP=1's heap, copied by name into chip 0
+    and from there into every chip).  Logits bitwise equal across TP, W
+    and chips, every collective an exact identity, 0 violations; the
+    widest plan of each TP within 2e-4 of its plain version; kinds 14-15
+    alone (the table's other rows noops) bitwise the plain version's in
+    the collectives' outputs, the staging buffers and the arrival
+    counters; traced at TP=2 with a clean event order over both chips;
+    chip 1's wq scaled by 1 + 2^-10 moves both chips' logits, equally;
+    ``init_weights`` draws the same weights into a TP=2 plan's chips as
+    into TP=1's (phase 3d relies on it)."""
+    from repro_torch.megakernel import (MegakernelExecutor,
+                                        compile_decode_megakernel,
+                                        launch_count, megakernel,
+                                        megakernel_plain, reset_launch_count)
+    from repro_torch.megakernel.ops import read_stats_block
+    from repro_torch.obs import check_event_order, decode_ring
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    rng = np.random.default_rng(SEED)
+    toks, lens = rng.integers(1, cfg.vocab, size=B), np.array([37, 90])
+    p1 = compile_decode_megakernel(cfg2, B, S)
+    src = MegakernelExecutor(p1, cfg2, "cuda")
+    src.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for name in p1.input_classes()["state"]:
+        p1.view(src.heap, name).normal_(0.0, 1.0, generator=gen)
+    base = src.heap
+    weights = p1.input_classes()["weights"]
+    want, errs = None, []
+    for tp in TP_DEGREES:
+        t0 = time.perf_counter()
+        ws = (1, 2, w_max // tp)
+        plans = {w: compile_decode_megakernel(cfg2, B, S, num_workers=w,
+                                              tp=tp) for w in ws}
+        wide = plans[ws[-1]]
+        traced = compile_decode_megakernel(cfg2, B, S, num_workers=ws[-1],
+                                           tp=tp, trace=True) \
+            if tp == 2 else None
+        size = max(p.heap_size for p in list(plans.values()) + [traced]
+                   if p is not None)
+        log(f"  TP={tp}: plans at W={ws} use "
+            f"{[p.num_workers for p in plans.values()]} lanes (C x W), "
+            f"{[p.num_steps for p in plans.values()]} steps, chip region "
+            f"{wide.chip_stride * 4 / 1e9:.2f} GB, heap {size * 4 / 1e9:.2f}"
+            f" GB ({time.perf_counter() - t0:.1f} s)")
+        heap = torch.zeros(size, device="cuda")
+        _fill_chips(heap, wide, p1, base)
+        if tp == 2:                     # the draws phase 3d relies on
+            chk = MegakernelExecutor(wide, cfg2, "cuda")
+            chk.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+            for n in weights:
+                for c in range(tp):
+                    assert torch.equal(wide.view(chk.heap, n, c),
+                                       p1.view(base, n)), (n, c)
+            del chk
+        if tp == TP_DEGREES[-1]:
+            del src, base               # the last TP: chip 0 holds it all
+        torch.cuda.empty_cache()
+        pre = heap.clone()              # the image before the step
+        for w, plan in plans.items():
+            ex = MegakernelExecutor(plan, cfg2, "cuda")
+            ex.upload(heap)             # the same tensor, no copy
+            ex.write_step_inputs(toks, lens)
+            reset_launch_count()
+            ex.launch()
+            torch.cuda.synchronize()
+            assert launch_count() == 1
+            got = plan.view(heap, "logits").cpu()
+            want = got if want is None else want
+            waits, sigs = _check_tp_run(plan, heap, ex.worker_counters(),
+                                        want)
+            log(f"  TP={tp} W={w} ({plan.num_workers} lanes): logits on "
+                f"{plan.n_chips} chip(s) bitwise equal to TP=1 W=1, "
+                f"{len(_allreduces(plan))} collectives exact identities, "
+                f"{waits} waits, {sigs} signals, 0 violations")
+        # the plain version from the image before the step
+        ex_p = MegakernelExecutor(wide, cfg2, "cuda")
+        ex_p.upload(pre)
+        ex_p.write_step_inputs(toks, lens)
+        megakernel_plain(pre, wide.descs, wide.statics, acks=wide.acks)
+        errs.append(_close(wide.view(heap, "logits"),
+                           wide.view(pre, "logits"), 2e-4))
+        assert read_stats_block(heap, wide.stats_offset, wide.num_workers) \
+            == read_stats_block(pre, wide.stats_offset, wide.num_workers)
+        line = (f"  TP={tp} W={ws[-1]}: vs plain max_err={errs[-1]:.3e} "
+                f"(<= 2e-4), counter blocks equal")
+        if tp > 1:                      # kinds 14-15 alone, one image
+            pre.copy_(heap)
+            table = wide.descs.copy()
+            table[~np.isin(table[:, 0], (14, 15)), 0] = 0
+            ex.write_step_inputs(toks, lens)
+            ex_p.write_step_inputs(toks, lens)
+            reset_launch_count()
+            megakernel(heap, torch.from_numpy(table).cuda(), wide.statics,
+                       acks=ex._acks)
+            torch.cuda.synchronize()
+            assert launch_count() == 1
+            megakernel_plain(pre, table, wide.statics, acks=wide.acks)
+            for out, _ in _allreduces(wide):
+                for c in range(tp):
+                    assert torch.equal(wide.view(heap, out, c),
+                                       wide.view(pre, out, c)), (out, c)
+            lo, hi = wide.event_offset, wide.stats_offset
+            assert torch.equal(heap[lo:hi], pre[lo:hi])
+            assert torch.equal(heap[wide.ctl_offset:wide.heap_size],
+                               pre[wide.ctl_offset:wide.heap_size])
+            assert read_stats_block(heap, wide.stats_offset,
+                                    wide.num_workers) \
+                == read_stats_block(pre, wide.stats_offset, wide.num_workers)
+            n_comm = int(np.isin(wide.descs[:, 0], (14, 15)).sum())
+            line += (f"; kinds 14-15 alone ({n_comm} rows): collectives, "
+                     f"{(hi - lo - wide.num_events) * 4 / 1e6:.2f} MB of "
+                     f"staging and {wide.ctl_words} arrival counters bitwise"
+                     f" the plain version's")
+        log(line)
+        del pre, ex_p
+        torch.cuda.empty_cache()
+        if traced is not None:          # the trace ring over both chips
+            ex_t = MegakernelExecutor(traced, cfg2, "cuda")
+            ex_t.upload(heap)
+            ex_t.write_step_inputs(toks, lens)
+            ex_t.launch()
+            _check_tp_run(traced, heap, ex_t.worker_counters(), want)
+            ring = ex_t.task_ring()
+            ticks = np.sort(np.concatenate([ring[:, 3], ring[:, 4]]))
+            assert np.array_equal(ticks, np.arange(2 * ring.shape[0]))
+            tl = decode_ring(traced, ring)
+            order = check_event_order(tl)
+            assert order == [], order[:5]
+            assert {e.chip for e in tl.events} == {0, 1}
+            # chip isolation: chip 1's wq scaled by 1 + 2^-10
+            wq = wide.view(heap, "L0.wq", 1)
+            saved = wq.clone()
+            wq.mul_(1.0009765625)
+            ex.write_step_inputs(toks, lens)
+            ex.launch()
+            c0, c1 = (wide.view(heap, "logits", c).cpu() for c in (0, 1))
+            assert not torch.equal(c0, want) and not torch.equal(c1, want)
+            assert torch.equal(c0, c1)
+            wq.copy_(saved)
+            log(f"  TP=2 traced at W={ws[-1]}: ticks a permutation, "
+                f"check_event_order clean over {len(tl.events)} events on "
+                f"chips {sorted({e.chip for e in tl.events})}; chip 1's wq "
+                f"x (1 + 2^-10): both chips' logits moved (max "
+                f"{float((c0 - want).abs().max()):.3e}), bitwise equal to "
+                f"each other; init_weights draws TP=2's chips bitwise "
+                f"TP=1's weights")
+            del ex_t, saved
+        del ex, heap
+        torch.cuda.empty_cache()
+    log(f"phase {tag} ok ({cfg.name}): logits bitwise equal across TP in "
+        f"{TP_DEGREES}, W and chips, max_err vs plain {max(errs):.3e}")
+    return max(errs)
+
+
+def phase_tp_serve(cfg, w_max, tag):
+    """The TP slice: full-depth granite at TP=4 (W = W_max // 4) served
+    through ``compile(..., tp=4)`` and a ``ServingEngine`` as in phase 3b,
+    weights drawn from the same seed into chip 0 and copied to the
+    others.  Every decode step bitwise phase 3b's (TP=1, dynamic), within
+    3e-4 of the torch Program (teacher-forced on chip 0's weights); one
+    static step after the run bitwise phase 3b's static step; the step
+    from a zero state bitwise TP=2's.  Times the static step at TP=2 and
+    TP=4 (and the walks), ``Program.step``, the compile and the stamp;
+    holds the kernel to its plain version (3e-4); bounds: every chip's
+    bytes plus the ring's; each kind alone, kinds 14-15 together."""
+    from repro_torch.api import compile as mk_compile
+    from repro_torch.megakernel import (launch_count, lower_tgraph,
+                                        megakernel_plain, reset_launch_count)
+    from repro_torch.megakernel.desc import stamp_multichip
+    from repro_torch.runtime import Request, ServingEngine
+    ref = SERVED[cfg.name]
+    toks, lens = ref["toks"], ref["lens"]
+    ragged = np.array([16, 120])
+    gen = lambda: torch.Generator(device="cuda").manual_seed(SEED)
+
+    def noop_walk(plan):
+        walk = plan.descs.copy()
+        walk[:, 0] = 0
+        return torch.from_numpy(walk).cuda()
+
+    # TP = 2: the step from a zero state, its time and its walk
+    t0 = time.perf_counter()
+    prog = mk_compile(cfg, B, S, backend="megakernel",
+                      num_workers=w_max // 2, tp=2)
+    compile2 = time.perf_counter() - t0
+    prog.init_weights(gen())
+    prog.init_state()
+    ex = prog.executor
+    ex.write_step_inputs(toks, lens)
+    ex.launch()
+    zero2 = prog.plan.view(ex.heap, "logits").cpu()
+    _check_tp_run(prog.plan, ex.heap, ex.worker_counters(), zero2)
+    ms2 = _kernel_ms(ex, toks, lens, 5)
+    walk2 = _kernel_ms(ex, toks, lens, 3, noop_walk(prog.plan))
+    p2 = prog.plan
+    log(f"  TP=2 plan at W={w_max // 2}: {p2.num_workers} lanes, "
+        f"{p2.num_steps} steps, {p2.descs.shape[0]} rows, heap "
+        f"{p2.heap_size * 4 / 1e9:.2f} GB (host compile and stamp "
+        f"{compile2:.1f} s); static step {ms2:.3f} ms, walk {walk2:.3f} ms")
+    del prog, ex, p2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # TP = 4: compile, draw, the zero-state step, then serve
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prog = mk_compile(cfg, B, S, backend="megakernel",
+                      num_workers=w_max // 4, tp=4)
+    compile_s = time.perf_counter() - t0
+    plan, ex = prog.plan, prog.executor
+    t0 = time.perf_counter()
+    stamp_multichip(lower_tgraph(plan.compiled, cfg), 4)
+    stamp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prog.init_weights(gen())
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_coll = len(_allreduces(plan))
+    log(f"  TP=4 plan at W={w_max // 4}: {plan.num_workers} lanes (the "
+        f"partition uses {plan.compiled.partition.num_workers} workers a "
+        f"chip), {plan.num_steps} steps, {plan.descs.shape[0]} rows, "
+        f"{n_coll} collectives of {4 * 4 - 3} ring steps, "
+        f"{plan.num_events} event counters, {plan.ctl_words} arrival "
+        f"counters, heap {plan.heap_size * 4 / 1e9:.2f} GB (4 regions of "
+        f"{plan.chip_stride * 4 / 1e9:.2f} GB); host compile and stamp "
+        f"{compile_s:.1f} s, of it the stamp {stamp_s:.1f} s; weights drawn "
+        f"into chip 0 and copied to chips 1-3 in {draw_s:.1f} s")
+    prog.init_state()
+    ex.write_step_inputs(toks, lens)
+    ex.launch()
+    _check_tp_run(plan, ex.heap, ex.worker_counters(), zero2)
+    prog.init_state()
+
+    calls = []
+    _record(prog, calls)
+    eng = ServingEngine(prog, chunk=16)
+    rng = np.random.default_rng(SEED)
+    for i, n in enumerate(PROMPTS):
+        eng.submit(Request(i, rng.integers(1, cfg.vocab, size=n).tolist(),
+                           max_new_tokens=8))
+    reset_launch_count()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_count()
+    assert len(done) == 4 and all(len(r.output) == 8 for r in done)
+    assert launches > 0 and launches == eng.decode_iterations
+    steps = [c[3] for c in calls if c[0] == "step"]
+    assert len(steps) == len(ref["steps"])
+    for got, want in zip(steps, ref["steps"]):
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    log(f"  served 4 requests at TP=4 in {wall:.1f} s: {eng.iterations} "
+        f"iterations, {launches} decode steps and kernel launches, every "
+        f"step's logits bitwise phase {tag[:-1]}b's (TP=1); outputs "
+        + " ".join(str(r.output[:2]) for r in
+                   sorted(done, key=lambda r: r.request_id)))
+    torch_prog = mk_compile(cfg, B, S, backend="torch").bind(
+        prog.weight_views())
+    torch_prog.init_state()
+    worst = 0.0
+    for c in calls:
+        if c[0] == "reset":
+            torch_prog.reset_slot(c[1])
+        elif c[0] == "prefill":
+            torch_prog.prefill(c[1], c[2], c[3])
+        else:
+            worst = max(worst, _close(torch.from_numpy(c[3]), torch.from_numpy(
+                torch_prog.step(c[1], c[2])), 3e-4))
+    torch_prog.step(toks, lens)                       # warm-up
+    library_ms = _events_ms(lambda: torch_prog.step(toks, lens), 3)
+    del torch_prog
+    torch.cuda.empty_cache()
+    log(f"  teacher-forced {len(steps)} decode steps through the torch "
+        f"Program: max |logits diff| {worst:.3e} (<= 3e-4)")
+
+    # one static step after the run: bitwise phase 3b's
+    ex.write_step_inputs(toks, lens)
+    ex.launch()
+    waits, sigs = _check_tp_run(plan, ex.heap, ex.worker_counters(),
+                                ref["static_logits"])
+    log(f"  one step at lengths {tuple(map(int, lens))} after the run: "
+        f"logits on 4 "
+        f"chips bitwise phase {tag[:-1]}b's static step, {n_coll} "
+        f"collectives exact identities, {waits} waits, {sigs} signals, 0 "
+        f"violations")
+
+    ms = _kernel_ms(ex, toks, lens, 5)
+    ms_ragged = _kernel_ms(ex, toks, ragged, 5)
+    walk_ms = _kernel_ms(ex, toks, lens, 3, noop_walk(plan))
+    step_ms = _events_ms(lambda: type(prog).step(prog, toks, lens), 3)
+    ex.write_step_inputs(toks, lens)
+    ex.launch()
+    kernel_logits = plan.view(ex.heap, "logits").clone()
+    nbytes, flops = _step_work(plan, cfg, lens, ex.heap)
+    all_bytes, all_flops = _step_work(plan, cfg, lens)
+    ring = _ring_bytes(plan)
+    bound_ms, bound_by = _bound((4 * nbytes + ring, 4 * flops))
+    bound_all_ms = _bound((4 * all_bytes + ring, 4 * all_flops))[0]
+    ex.write_step_inputs(toks, lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    megakernel_plain(ex.heap, plan.descs, plan.statics, acks=plan.acks)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _close(kernel_logits, plan.view(ex.heap, "logits"), 3e-4)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    by_kind, kind_ms = _time_by_kind(ex, plan, toks, lens)
+    log(f"  TP=4 decode step at lengths {tuple(map(int, lens))}: static "
+        f"kernel {ms:.3f} ms (TP=2 {ms2:.3f} ms, TP=1 {ref['ms']:.3f} ms in "
+        f"phase {tag[:-1]}b), ragged {tuple(map(int, ragged))} "
+        f"{ms_ragged:.3f} ms; the walk of the all-noop "
+        f"table {walk_ms:.3f} ms (TP=2 {walk2:.3f} ms); Program.step "
+        f"{step_ms:.3f} ms; torch Program step {library_ms:.3f} ms; plain "
+        f"version {plain_ms:.1f} ms, kernel vs plain max_err={err:.3e}; "
+        f"bound {bound_ms:.3f} ms ({bound_by}: 4 x {nbytes / 1e9:.2f} GB of"
+        f" the routed experts + {ring / 1e6:.2f} MB of ring traffic), "
+        f"{bound_all_ms:.3f} ms with every expert; peak memory "
+        f"{peak_gb:.2f} GB")
+    log(f"  kernel time by kind alone at TP=4 (kind ms/tasks; noop = the "
+        f"walk; send+allreduce_chunk = the COMM rows): " + ", ".join(by_kind))
+    log(f"phase {tag} ok ({cfg.name} at TP=4)")
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "tp": 4, "lanes": plan.num_workers,
+            "ms_ragged": ms_ragged, "walk_ms": walk_ms, "ms_tp2": ms2,
+            "walk_tp2_ms": walk2, "program_step_ms": step_ms,
+            "compile_s": compile_s, "stamp_s": stamp_s, "peak_gb": peak_gb,
+            "comm_ms": kind_ms["send+allreduce_chunk"],
+            "bound_all_experts_ms": bound_all_ms, "ring_bytes": ring,
+            "served_max_err": worst}
 
 
 def standalone_bounds():
@@ -1118,6 +1534,9 @@ def main() -> int:
     mamba = get_config("mamba2-2.7b")
     err2c = timed("phase 2c", phase_workers, mamba, w_max, "2c")
     kc = timed("phase 3c", phase_serve, mamba, w_max, "3c")
+    err2d = max(timed("phase 2d", phase_tp_workers, m, w_max, "2d")
+                for m in (dense, granite))
+    kd = timed("phase 3d", phase_tp_serve, granite, w_max, "3d")
     lib = timed("standalone bounds", standalone_bounds)
     for row in lib:
         log("  still to port: %s at %s: %d bytes, %d FLOP, bound %.6f ms "
@@ -1125,14 +1544,17 @@ def main() -> int:
     kernel = {"name": "megakernel", "route": "cuda",
               "source": "src/repro_torch/megakernel/csrc/megakernel.cu",
               "replaces": "src/repro/kernels/megakernel/kernel.py:1175",
-              "kinds": "0-13"}
+              "kinds": "0-15"}
     # the top-level times are deepseek-7b's (the dense slice); each
     # model's own numbers follow under "models"
     kernel.update(k)
-    kernel["launches"] = k["launches"] + kb["launches"] + kc["launches"]
+    kernel["launches"] = k["launches"] + kb["launches"] + kc["launches"] \
+        + kd["launches"]
     kernel["max_abs_err"] = max(k["max_abs_err"], err2, kb["max_abs_err"],
-                                err2b, kc["max_abs_err"], err2c)
-    kernel["models"] = {dense.name: k, granite.name: kb, mamba.name: kc}
+                                err2b, kc["max_abs_err"], err2c, err2d,
+                                kd["max_abs_err"])
+    kernel["models"] = {dense.name: k, granite.name: kb, mamba.name: kc,
+                        f"{granite.name} tp=4": kd}
     log(f"chip_smoke took {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": [kernel]}))
     log(json.dumps({"ok": True, "device": {

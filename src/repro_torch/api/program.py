@@ -17,7 +17,10 @@ Backends:
   the compiler's per-worker streams; ``scheduler="dynamic"`` pops ready
   tasks from heap-resident pools, with stealing, and pushes the
   consumers each completed event makes ready.  ``trace=True`` adds the
-  trace ring, read back by ``Program.trace()``.
+  trace ring, read back by ``Program.trace()``.  ``tp=C`` compiles
+  tensor parallelism over the fused transport: C chips as regions of one
+  heap on one card, their ALLREDUCEs run in the kernel as a chunked ring
+  (static scheduler only; bitwise equal to ``tp=1``).
 
 ``prefill`` runs the torch ``prefill_chunk`` against the program's state
 on both: the megakernel program reads the cache out of its heap, runs it
@@ -230,13 +233,14 @@ class MegakernelProgram(Program):
     backend = "megakernel"
 
     def __init__(self, cfg, batch, max_seq, device, num_workers: int = 1,
-                 trace: bool = False, scheduler: str = "static"):
+                 trace: bool = False, scheduler: str = "static",
+                 tp: int = 1):
         super().__init__(cfg, batch, max_seq, device)
         from ..megakernel import MegakernelExecutor, compile_decode_megakernel
         self.scheduler = scheduler
         self.plan = compile_decode_megakernel(cfg, batch, max_seq,
                                               num_workers=num_workers,
-                                              scheduler=scheduler,
+                                              scheduler=scheduler, tp=tp,
                                               trace=trace)
         self._compiled = self.plan.compiled
         self.executor = MegakernelExecutor(self.plan, cfg, device)
@@ -377,7 +381,7 @@ class MegakernelProgram(Program):
 
 def compile(cfg, batch: int, max_seq: int, backend: str = "torch", *,
             device=None, num_workers: int = 1, scheduler: str = "static",
-            trace: bool = False) -> Program:
+            tp: int = 1, trace: bool = False) -> Program:
     """Compile ``cfg``'s decode step once; returns a stateful
     :class:`Program` for ``backend`` ("torch" | "megakernel") on
     ``device`` (the card unless ``device="cpu"``; with no card and no
@@ -386,7 +390,10 @@ def compile(cfg, batch: int, max_seq: int, backend: str = "torch", *,
     partitioner may use (one CTA each on the card), ``scheduler`` is
     "static" (the partition's per-worker streams) or "dynamic" (ready
     pools with stealing, the partition as the affinity hint) and
-    ``trace`` adds the trace ring; the torch backend ignores all three."""
+    ``trace`` adds the trace ring; the torch backend ignores all three.
+    ``tp`` (megakernel only) is the tensor-parallel degree: the plan is
+    stamped for ``tp`` chips over the fused transport, and its ``tp *
+    num_workers`` lanes must fit on the card at once."""
     if scheduler not in SCHEDULERS:
         raise ValueError(f"unknown scheduler {scheduler!r}; "
                          f"expected one of {SCHEDULERS}")
@@ -394,7 +401,12 @@ def compile(cfg, batch: int, max_seq: int, backend: str = "torch", *,
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
     if backend == "megakernel":
         return MegakernelProgram(cfg, batch, max_seq, device, num_workers,
-                                 trace, scheduler)
+                                 trace, scheduler, tp)
+    if tp != 1:
+        raise ValueError(f"tp={tp} is only supported on the megakernel "
+                         "backend")
     return TorchProgram(cfg, batch, max_seq, device)

@@ -1,8 +1,8 @@
 """Lowering: ModelConfig → kernel-level decode-step ComputationGraph.
 
 The port's copy of ``repro/core/lowering.py`` for the dense, MoE and
-SSM families (the hybrid, shared-expert and embedding-input branches and
-TP AllReduce insertion are later slices and raise).  The graph's tensor
+SSM families, with the TP AllReduce insertion (the hybrid, shared-expert
+and embedding-input branches are later slices and raise).  The graph's tensor
 names double as binding keys and as the port's parameter names, so
 ``decode_bindings`` is the parameter dict plus the cache and the
 per-step inputs.
@@ -28,10 +28,12 @@ def build_decode_graph(
     name: Optional[str] = None,
 ) -> ComputationGraph:
     """One decode step (one new token per request) as an operator graph,
-    node for node the reference's graph of the same config."""
+    node for node the reference's graph of the same config.
+
+    ``tp > 1`` inserts an ALLREDUCE after every attention or SSM output
+    projection and every FFN or MoE output (paper §6.5); shapes stay
+    global (the graph is one shard's schedule)."""
     check_supported(cfg)
-    if tp != 1:
-        raise NotImplementedError("tensor parallelism is not ported yet")
     g = ComputationGraph(name or f"{cfg.name}-decode-b{batch}")
     d, hd = cfg.d_model, cfg.hd
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
@@ -63,6 +65,13 @@ def build_decode_graph(
         g.add_tensor(out, (b, out_cols))
         kw = {"activation": activation} if activation else {}
         g.add_op(OpKind.MATMUL, ins, [out], **kw)
+        return out
+
+    def allreduce(y: str, out: str) -> str:
+        if tp <= 1:
+            return y
+        g.add_tensor(out, (b, d))
+        g.add_op(OpKind.ALLREDUCE, [y], [out], mesh_axis="model", tp=tp)
         return out
 
     def ssm_mixer(L: str, x: str) -> str:
@@ -123,7 +132,7 @@ def build_decode_graph(
                  eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
         x = f"{L}.x"
         if cfg.layer_kind(i) == "ssm":
-            o = ssm_mixer(L, x)
+            o = allreduce(ssm_mixer(L, x), f"{L}.o_ar")
             g.add_tensor(f"{L}.h", (b, d))
             g.add_op(OpKind.RESIDUAL_ADD, [h, o], [f"{L}.h"])
             h = f"{L}.h"
@@ -157,7 +166,8 @@ def build_decode_graph(
             [f"{L}.qr", f"{L}.k_cache2", f"{L}.v_cache2", "live_lens"],
             [f"{L}.attn"], head_dim=hd, q_per_kv=cfg.q_per_kv,
             col_align=hd * cfg.q_per_kv)
-        o = matmul(f"{L}.attn", f"{L}.wo", f"{L}.o", d)
+        o = allreduce(matmul(f"{L}.attn", f"{L}.wo", f"{L}.o", d),
+                      f"{L}.o_ar")
         g.add_tensor(f"{L}.h", (b, d))
         g.add_op(OpKind.RESIDUAL_ADD, [h, o], [f"{L}.h"])
         h = f"{L}.h"
@@ -195,6 +205,7 @@ def build_decode_graph(
             g.add_op(OpKind.MOE_COMBINE, [f"{L}.eo", f"{L}.router"],
                      [f"{L}.moe_out"])
             y = f"{L}.moe_out"
+        y = allreduce(y, f"{L}.ffn_ar")
         g.add_tensor(f"{L}.h2", (b, d))
         g.add_op(OpKind.RESIDUAL_ADD, [h, y], [f"{L}.h2"])
         h = f"{L}.h2"

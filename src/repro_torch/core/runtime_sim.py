@@ -22,10 +22,16 @@ execution models:
   mpk_coarse    — event-driven execution with operator-granularity events
                   (Fig. 5c), the compute–communication-overlap ablation
                   of Fig. 13,
-  mpk_tp        — the multi-chip megakernel (``SimConfig.tp`` chips).
-                  At ``tp <= 1`` the branch reduces *exactly* to ``mpk``
-                  (identical code path); ``tp > 1`` is a later slice of
-                  the port and raises,
+  mpk_tp        — the multi-chip megakernel (``SimConfig.tp`` chips):
+                  the same worker-partition replay as ``mpk``, but every
+                  ALLREDUCE task charges the chunked ring-allreduce of
+                  ``distributed/comm_tasks.py`` — the SAME
+                  ``expand_ring_allreduce`` schedule the descriptor
+                  stamper lowers into the kernel.  At ``tp <= 1`` the
+                  branch reduces *exactly* to ``mpk`` (identical code
+                  path).  ``comm_plan="serialized"`` is the whole-tensor
+                  baseline: the tensor crosses the wire twice per
+                  collective with no chunking,
   mpk_dyn       — the decentralized *dynamic* scheduler
                   (``runtime/dyn_sched.py``): workers pop ready tasks
                   from heap-resident queues (own pool → shared overflow
@@ -186,12 +192,26 @@ def _mpk_cost_model(compiled: CompiledTGraph, cfg: SimConfig):
     part = compiled.partition
 
     if cfg.mode == "mpk_tp" and cfg.tp > 1:
-        raise NotImplementedError(
-            "mode='mpk_tp' with tp > 1: the multichip collectives are "
-            "not ported yet")
+        # multi-chip: collectives charge the lockstep ring expansion
+        # (or the whole-tensor baseline), everything else is the
+        # single-chip cost — the TP model keeps global shapes
+        from ..distributed.comm_tasks import (ring_duration,
+                                              serialized_duration)
 
-    def base_time_fn(task, is_stalled):
-        return _task_time(task, cfg, is_stalled)
+        def _wire(nbytes):
+            return comm_time(nbytes, ici_bw=cfg.ici_bw,
+                             latency=cfg.comm_latency)
+        coll_fn = (serialized_duration
+                   if cfg.comm_plan == "serialized" else ring_duration)
+
+        def base_time_fn(task, is_stalled):
+            if task.is_comm and not task.is_dummy:
+                span_words = int(task.bytes_moved() // 4)
+                return coll_fn(span_words, cfg.tp, time_fn=_wire)
+            return _task_time(task, cfg, is_stalled)
+    else:
+        def base_time_fn(task, is_stalled):
+            return _task_time(task, cfg, is_stalled)
 
     def wait_fn(task):
         return (cfg.jit_hop if task.launch_mode == "jit"

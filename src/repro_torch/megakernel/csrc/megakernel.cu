@@ -12,8 +12,11 @@
 // router's top-k softmax, `k_softmax_topk` at kernel.py:896; the expert
 // GEMM, `k_moe_gg` at :914; the weighted combine, `k_moe_combine` at
 // :947) and the SSM family's 12-13 (the Mamba2 SSD state update, `k_ssm`
-// at :959; the causal conv step, `k_conv` at :998), with the in-heap
-// event wait and signal and the trace ring.
+// at :959; the causal conv step, `k_conv` at :998) and the COMM kinds
+// 14-15 of a stamped multichip plan (the ring send, `k_remote_copy` at
+// :679, and the all-reduce chunk, `k_ar_chunk` at :713, both over the
+// span op `span_op` at :641), with the in-heap event wait and signal and
+// the trace ring.
 //
 // Design: one CTA of 512 threads per worker, all W CTAs resident at once
 // (a cooperative launch, which refuses a grid that cannot be).  Under the
@@ -134,6 +137,34 @@
 // kernel for a plan with either kind, so the dense and the extended
 // kernels keep the code and registers they had.
 //
+// Tensor parallelism (kinds 14-15).  A plan stamped for C chips over the
+// fused transport (repro_torch/megakernel/desc.py `stamp_multichip`) runs
+// C * W CTAs over one heap holding C copies of the tensor region; every
+// ALLREDUCE is a chunked ring of 4C - 3 grid steps.  The send (14) copies
+// m rows of a window of d[3] words from its chip's output (d[6], row
+// stride d[7]) into the peer chip's packed staging buffer (d[4], d[5]),
+// then signals the peer's arrival event through the word-34 path; the
+// all-reduce chunk (15) combines a staged window into its chip's output
+// by mode d[14]: 0 the owner-masked init (the source inside the owned
+// window [d[15], d[15] + d[16]), else 0), 1 accumulate (dst + src), 2
+// store.  Both are bound by a few KB of copies: a thread per word with
+// scalar loads and stores (the windows start at any column), the source
+// read through the coherent path (another CTA wrote it in this launch).
+// Unlike the reference's 256-word blocks, which write back whole blocks
+// and restore the words past the window, only the window is read and
+// written: on the card other lanes may store the neighbouring words at
+// the same time.  Ordering: a send's stores are released by the
+// signal's __syncthreads() (every thread's stores) and thread 0's fence
+// before its add; a receive waits on word 32 with the acquire spin.  A
+// (chip, phase) staging buffer holds one chunk and the C - 1 rounds of
+// a phase reuse it, so the chips may not run more than one round apart:
+// each arrival adds one to a port-only counter after its reads (the
+// plan's side table `acks`: counter, count per row), and a send of round
+// r >= 1 first spins until the receiver's counter reaches r.  The kinds
+// and the guard are compiled only into the multichip instantiation
+// (static only, EXT 3: every kind), so the other kernels keep their code
+// and registers.
+//
 // Numerics follow the reference in float32: no TF32, no fast math, GELU
 // in its tanh form.  A task's arithmetic does not depend on W, so the
 // outputs are bitwise equal across W.
@@ -196,6 +227,9 @@ struct Statics {
   // Mamba2 (kinds 12-13): SSD head width, state width N, the heads of one
   // kind-12 tile, conv taps
   long long hd_ssm, n_ssm, nh_tile, w_conv;
+  // a multichip plan's (rows, 2) side table: per row the heap offset of
+  // an arrival counter (-1: none) and, for a send, the count to wait for
+  const long long* acks;
 };
 
 // Dynamic shared memory: [descriptor row | block-reduction words]
@@ -831,6 +865,24 @@ __device__ __noinline__ void k_conv(float* heap, const long long* d,
   }
 }
 
+// ---- kinds 14-15: the ring send and the all-reduce chunk ----------------
+// m rows (word 1) of a window of d[3] words: source row d[6] + r * d[7],
+// destination row d[4] + r * d[5].  Kind 14 and mode 2 copy, mode 1 adds
+// the source to the destination, mode 0 keeps the source inside the owned
+// window [d[15], d[15] + d[16]) and writes 0 elsewhere.
+__device__ __noinline__ void k_comm(float* heap, const long long* d) {
+  const long long m = d[1], nw = d[3];
+  if (nw <= 0) return;
+  const bool copy = d[0] == 14 || d[14] == 2, acc = !copy && d[14] == 1;
+  const long long own0 = d[15], own1 = d[15] + d[16];
+  for (long long i = threadIdx.x; i < m * nw; i += NT) {
+    const long long r = i / nw, rel = i - r * nw;
+    const float s = heap[d[6] + r * d[7] + rel];
+    float* o = heap + d[4] + r * d[5] + rel;
+    *o = copy ? s : acc ? *o + s : (rel >= own0 && rel < own1 ? s : 0.0f);
+  }
+}
+
 // The counters thread 0 keeps for its worker and writes into the
 // worker's block at the end of the launch (the same counts the plain
 // version writes): tile transfers, rows in them, primary tiles
@@ -957,12 +1009,19 @@ __device__ __forceinline__ void wait_event(float* heap, const Statics& S,
 }
 
 // EXT: 0 the dense kinds (0-8), 1 with the MoE kinds (9-11) and the
-// matmul's tail pass, 2 with the Mamba2 kinds (12-13) as well.
+// matmul's tail pass, 2 with the Mamba2 kinds (12-13) as well, 3 (static
+// only) with the COMM kinds (14-15) as well.
 template <int EXT>
 __device__ __forceinline__ void run_task(long long kind, float* heap,
                                          const long long* d,
                                          const Statics& S, const Smem& sm) {
-  if constexpr (EXT == 2) {
+  if constexpr (EXT == 3) {
+    if (kind == 14 || kind == 15) {
+      k_comm(heap, d);
+      return;
+    }
+  }
+  if constexpr (EXT >= 2) {
     switch (kind) {
       case 12:
         k_ssm(heap, d, store_width(d[2], S), S.hd_ssm, S.nh_tile, S.n_ssm);
@@ -991,6 +1050,26 @@ __device__ __forceinline__ void run_task(long long kind, float* heap,
     case 8: k_embed(heap, d, S); break;
     default: __trap();                  // a kind of a later slice
   }
+}
+
+// Thread 0, before a ring send of round r >= 1: spin with acquire loads
+// until the receiver's arrival counter `p` reaches `want` (its staging
+// buffer is free again), under the event wait's deadline (a fault shows
+// event -1).  Not counted as an event wait.
+__device__ __noinline__ void wait_ack(float* heap, const Statics& S,
+                                      long long w, long long row,
+                                      const float* p, long long want) {
+  const float target = static_cast<float>(want);
+  float seen = ld_acquire(p);
+  if (seen < target) {
+    const unsigned long long t0 = global_ns();
+    while ((seen = ld_acquire(p)) < target) {
+      if (global_ns() - t0 > static_cast<unsigned long long>(S.spin_ns))
+        spin_fault(heap, S, w, row, -1, seen, want);
+      __nanosleep(32);
+    }
+  }
+  __threadfence();
 }
 
 // Thread 0: the trace record of one task.
@@ -1064,6 +1143,18 @@ __device__ void static_loop(float* heap, const long long* __restrict__ descs,
     float t_start = 0.0f;
     if (threadIdx.x == 0) {
       if (wait_ev >= 0) wait_event(heap, S, w, row, wait_ev, wait_cnt, c);
+      if constexpr (EXT == 3) {
+        if (kind == 14 || kind == 15) {
+          // a send waits until the receiver's buffer is free again
+          if (kind == 14 && S.acks != nullptr && S.acks[2 * row] >= 0)
+            wait_ack(heap, S, w, row, heap + S.acks[2 * row],
+                     S.acks[2 * row + 1]);
+          if (d[3] > 0) {               // the reference's span-op blocks
+            c.bulk += 1;
+            c.rows += 3 * ((d[3] + 255) / 256) * d[1];
+          }
+        }
+      }
       if (S.tr_off >= 0) t_start = atomicAdd(heap + S.tr_off, 1.0f);
     }
     __syncthreads();                    // the wait held
@@ -1071,6 +1162,12 @@ __device__ void static_loop(float* heap, const long long* __restrict__ descs,
     __syncthreads();                    // the task's stores landed
     if (threadIdx.x < DESC_WORDS) sm.d[threadIdx.x] = next;
     if (threadIdx.x == 0) {
+      if constexpr (EXT == 3) {         // an arrival's reads are done
+        if (kind == 15 && S.acks != nullptr && S.acks[2 * row] >= 0) {
+          __threadfence();
+          atomicAdd(heap + S.acks[2 * row], 1.0f);
+        }
+      }
       if (S.tr_off >= 0)
         write_record(heap, S, row, w, row, kind, t_start,
                      atomicAdd(heap + S.tr_off, 1.0f), -1.0f, wait_ev,
@@ -1292,9 +1389,11 @@ __device__ void dyn_loop(float* heap, const long long* __restrict__ descs,
 // allocation, so the dynamic loop's state costs the static loop nothing
 // (a runtime branch between the two loops in one kernel halved the static
 // loop's matmul rate on the card), the MoE kinds and the matmul's tail
-// cost the dense kernels nothing, and the Mamba2 kinds cost the extended
+// cost the dense kernels nothing, the Mamba2 kinds cost the extended
 // ones nothing (in one kernel with the MoE kinds they raised the static
-// extended kernel's spill from 100 to 124 bytes).
+// extended kernel's spill from 100 to 124 bytes), and the COMM kinds and
+// their guard cost the single-chip kernels nothing (megakernel<false, 3>
+// is the only instantiation with them).
 template <bool DYN, int EXT>
 __global__ void __launch_bounds__(NT)
 megakernel(float* heap, const long long* __restrict__ descs,
@@ -1345,6 +1444,8 @@ long long resident_ctas(const void* kernel, size_t smem, cudaError_t* err) {
 }
 
 const void* kernel_for(bool dyn, long long ext) {
+  if (ext == 3)                         // static only
+    return dyn ? nullptr : reinterpret_cast<const void*>(megakernel<false, 3>);
   if (ext == 2)
     return dyn ? reinterpret_cast<const void*>(megakernel<true, 2>)
                : reinterpret_cast<const void*>(megakernel<false, 2>);
@@ -1364,7 +1465,8 @@ extern "C" long long mk_max_workers(long long tk, long long hd) {
   cudaError_t err;
   long long n = -1;
   for (const bool dyn : {false, true})
-    for (const long long ext : {0, 1, 2}) {
+    for (const long long ext : {0, 1, 2, 3}) {
+      if (dyn && ext == 3) continue;    // the multichip kernel is static
       const long long k = resident_ctas(kernel_for(dyn, ext),
                                         smem_bytes(tk, hd), &err);
       if (err != cudaSuccess) return -static_cast<long long>(err);
@@ -1385,9 +1487,11 @@ extern "C" long long mk_max_workers(long long tk, long long hd) {
 // `tr_off` < 0: no trace ring.  `topk` is the experts a token routes to
 // (kind 9).  `ext` selects the variant: 1 the extended kernel (a plan
 // with the MoE kinds or a masked-store chunk that is not a whole float4
-// group), 2 the full one (a plan with the Mamba2 kinds), 0 the dense.  `hd_ssm`, `n_ssm`, `nh_tile` and `w_conv` shape the
-// Mamba2 kinds (12-13).  Returns the CUDA error of the launch (0 on
-// success).
+// group), 2 the full one (a plan with the Mamba2 kinds), 3 the multichip
+// one (a stamped plan, static only), 0 the dense.  `hd_ssm`, `n_ssm`,
+// `nh_tile` and `w_conv` shape the Mamba2 kinds (12-13); `acks` is a
+// multichip plan's (rows, 2) side table (null otherwise).  Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int mk_launch(float* heap, const long long* descs,
                          long long num_steps, long long num_workers,
                          long long tn, long long tk, long long hd,
@@ -1402,7 +1506,7 @@ extern "C" int mk_launch(float* heap, const long long* descs,
                          long long topk, long long ext,
                          long long hd_ssm, long long n_ssm,
                          long long nh_tile, long long w_conv,
-                         void* stream) {
+                         const long long* acks, void* stream) {
   const int tkc = static_cast<int>(tk < 8 ? 8 : (tk > 128 ? 128 : tk));
   const int ts = static_cast<int>(s_max < 128 ? s_max : 128);
   Statics S{tn, tk, hd, g, store_ch, stats_off, event_off, tr_off, spin_ns,
@@ -1410,9 +1514,10 @@ extern "C" int mk_launch(float* heap, const long long* descs,
             static_cast<int>((tk + tkc - 1) / tkc), ts,
             static_cast<int>((s_max + ts - 1) / ts), dyn, sched, sched_w,
             qoff, ov_words, qc_off, pt_off, ctl_off, n_tasks, topk,
-            hd_ssm, n_ssm, nh_tile, w_conv};
+            hd_ssm, n_ssm, nh_tile, w_conv, acks};
   const size_t smem = smem_bytes(tk, hd);
   const void* kernel = kernel_for(dyn != 0, ext);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   const long long resident = resident_ctas(kernel, smem, &err);
   if (err != cudaSuccess) return static_cast<int>(err);

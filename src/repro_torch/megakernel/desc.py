@@ -22,9 +22,16 @@ What differs from the reference:
   the reference's heap (at ``ctl_offset``: word 0 is the ticket the CUDA
   kernel takes per completed task), so that everything before them keeps
   the reference's layout;
-* the multichip stamp is a later slice: asking for it raises
-  ``NotImplementedError``, as does a task kind outside 0-13 (the COMM
-  kinds).
+* a stamped multichip plan (``stamp_multichip``) ends in port-only
+  arrival counters after the reference's heap (at ``ctl_offset``, one per
+  collective, chip and ring phase) with a port-only side table
+  (``MegakernelPlan.acks``, one (counter, count) pair per descriptor
+  row): a (chip, phase) staging buffer holds one chunk and the ``C - 1``
+  rounds of a phase reuse it, which the reference's step-major grid makes
+  safe.  On the card, where a chip's worker may run ahead of its peer's,
+  a send of round ``r >= 1`` first waits until the receiver's counter
+  shows its ``r`` earlier arrivals done.  The descriptor table itself is
+  the reference's.
 
 Descriptor words (per kind, see ``lower_tgraph``):
    0 kind   1 m      2 n      3 k      4 out_off 5 ldo
@@ -48,6 +55,21 @@ event with a cross-worker consumer, at ``event_offset``), one
 whose word 0 is the tick counter, then one ``TRACE_WORDS`` record per
 grid slot).  The ring comes last so that the trace-off layout is
 bitwise identical.
+
+Multichip (``stamp_multichip``, the fused transport): a static plan
+stamped for C chips runs C · W worker lanes (lane ``c * W + w`` is chip
+``c``'s worker ``w``) over one heap that holds C copies of the tensor
+region (``chip_stride`` words each), then the shared event table (every
+chip's events, then the ring's cross-chip arrival events), the
+collectives' staging buffers (two packed phase buffers per chip), the
+counter blocks and the optional ring.  Each ALLREDUCE step becomes the
+``4C - 3`` steps of ``distributed/comm_tasks.expand_ring_allreduce``:
+kind 14 (``REMOTE_COPY``) sends a chunk into the peer chip's staging
+buffer and signals its arrival event; kind 15 (``ALLREDUCE_CHUNK``) is
+the owner-masked init (mode 0) or an arrival's accumulate (1) or store
+(2).  Both move a window of word 3 words in each of the word 1 rows,
+from ``d[6] + r * d[7]`` to ``d[4] + r * d[5]``; their words 21-23 are
+peer, chunk and chip count, not offsets.
 
 Dynamic scheduler (``scheduler="dynamic"``, protocol in
 ``runtime/dyn_sched.py``): the table is flat, one row per task in
@@ -74,7 +96,8 @@ from ..core.graph import OpKind
 __all__ = ["KIND_CODES", "DESC_WORDS", "STATS_WORDS", "TRACE_WORDS",
            "TRACE_HEADER", "CTL_WORDS", "PER_STEP_INPUTS", "TensorSlot",
            "MegakernelPlan", "lower_tgraph", "dynamic_tail",
-           "stamp_multichip"]
+           "stamp_multichip", "refuse_remote_dma", "REMOTE_COPY_CODE",
+           "AR_CHUNK_CODE"]
 
 #: graph inputs that change every decode step — everything else in the heap
 #: (weights, caches) is uploaded once and lives on the device
@@ -127,7 +150,20 @@ KIND_CODES = {
     OpKind.MOE_COMBINE: 11,
     OpKind.SSM_UPDATE: 12,
     OpKind.CONV1D_UPDATE: 13,
+    "remote_copy": 14,              # COMM: send a chunk to the peer chip
+    OpKind.ALLREDUCE: 15,           # COMM: init / accumulate / store
 }
+
+#: the COMM kinds of a stamped multichip plan (``stamp_multichip``).
+#: ``REMOTE_COPY`` words: 1 rows, 3 window words per row, 4 the peer
+#: chip's staging buffer (packed: 5 = the window), 6/7 the source rows,
+#: 10 the peer chip (the reference's semaphore lane; unused here), 21 peer
+#: chip, 22 chunk id, 23 chip count, 34 the peer's arrival event.
+#: ``ALLREDUCE_CHUNK`` words: 1/3/4/5/6/7 as above, 14 mode (0 owner-masked
+#: init, 1 accumulate, 2 store), 15/16 the owned window (init only),
+#: 21-23 as above, 32/33 the arrival it waits on.
+REMOTE_COPY_CODE = 14
+AR_CHUNK_CODE = 15
 
 _ACT_IDS = {None: 0, "identity": 0, "silu": 1, "gelu": 2}
 
@@ -161,11 +197,12 @@ class TensorSlot:
             row = row * s + i
         return self.offset + row * self.ld + idx[-1]
 
-    def view(self, heap: torch.Tensor) -> torch.Tensor:
-        """The slot as a strided view of ``heap`` in the tensor's shape."""
+    def view(self, heap: torch.Tensor, base: int = 0) -> torch.Tensor:
+        """The slot as a strided view of ``heap`` in the tensor's shape,
+        ``base`` words further on (a chip's region)."""
         cols = self.shape[-1]
         rows2d = torch.as_strided(heap, (self.rows, cols), (self.ld, 1),
-                                  self.offset)
+                                  self.offset + base)
         return rows2d.view(self.shape) if len(self.shape) > 1 else \
             rows2d.view(cols)
 
@@ -194,10 +231,20 @@ class MegakernelPlan:
     qc_offset: int = 0                # [pushed, popped] per pool
     trace_offset: int = 0             # pop trace
     ctl_offset: int = 0               # port-only control words
+    n_chips: int = 1                  # chips of a stamped plan
+    chip_stride: int = 0              # words per chip region (0: one chip)
+    acks: Optional[np.ndarray] = None  # (rows, 2) port-only send guards
 
     @property
     def dynamic(self) -> bool:
         return self.scheduler == "dynamic"
+
+    @property
+    def ctl_words(self) -> int:
+        """Port-only words after the reference's heap, zeroed before every
+        launch: a dynamic plan's ticket, a stamped plan's arrival
+        counters."""
+        return self.heap_size - self.ctl_offset if self.ctl_offset else 0
 
     def pipeline_stats(self) -> Dict[str, Any]:
         """Scheduler stalls plus the prefetch plan's coverage over the
@@ -235,9 +282,11 @@ class MegakernelPlan:
                 "state": [n for n in g.inputs if n in state],
                 "weights": weights}
 
-    def view(self, heap: torch.Tensor, name: str) -> torch.Tensor:
-        """Tensor ``name`` as a strided view of ``heap`` (no copy)."""
-        return self.layout[name].view(heap)
+    def view(self, heap: torch.Tensor, name: str,
+             chip: int = 0) -> torch.Tensor:
+        """Tensor ``name`` of chip ``chip``'s region as a strided view of
+        ``heap`` (no copy)."""
+        return self.layout[name].view(heap, chip * self.chip_stride)
 
     def alloc_heap(self, device) -> torch.Tensor:
         """A zeroed heap on ``device``: pad columns and the tail are 0."""
@@ -247,17 +296,20 @@ class MegakernelPlan:
     def build_heap(self, bindings: Mapping[str, Any],
                    device) -> torch.Tensor:
         """Pack bindings into a new heap on ``device``, one binding at a
-        time (ids and lengths are stored as float32 values)."""
+        time (ids and lengths are stored as float32 values), into every
+        chip's region of a multichip plan."""
         heap = self.alloc_heap(device)
         for name in self.compiled.graph.inputs:
-            self.view(heap, name).copy_(
-                torch.as_tensor(bindings[name]).reshape(
-                    self.layout[name].shape))
+            for c in range(self.n_chips):
+                self.view(heap, name, c).copy_(
+                    torch.as_tensor(bindings[name]).reshape(
+                        self.layout[name].shape))
         return heap
 
-    def read_output(self, heap: torch.Tensor, name: str) -> torch.Tensor:
-        """A copy of tensor ``name`` out of ``heap``."""
-        return self.view(heap, name).clone()
+    def read_output(self, heap: torch.Tensor, name: str,
+                    chip: int = 0) -> torch.Tensor:
+        """A copy of tensor ``name`` of chip ``chip`` out of ``heap``."""
+        return self.view(heap, name, chip).clone()
 
 
 #: kinds whose leading operand is a regular (m-row, descriptor-addressed)
@@ -638,13 +690,28 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
             d[15] = wconv * state.ld                 # batch stride
             d[10], d[11] = w.elem(0, c0), w.ld
             d[12] = sl(3).elem(c0) if len(ins) > 3 else -1
+        elif kind == OpKind.ALLREDUCE:
+            # single-chip lowering: an identity ALLREDUCE_CHUNK whose
+            # owned window is the whole tile (the TP model keeps global
+            # shapes); ``stamp_multichip`` replaces this placeholder with
+            # the chunked ring at tp > 1
+            src = sl(0)
+            assert c0 == 0 and src.ld == out.ld, \
+                "allreduce tasks must span whole rows of an ld-matched pair"
+            d[3] = n                         # per-row window = REAL width
+            d[6], d[7] = src.elem(r0, 0), src.ld
+            d[14] = 0                        # mode: init
+            d[15], d[16] = 0, n              # owned window: everything
+            d[21], d[22], d[23] = -1, 0, 1   # peer / chunk id / count
 
     # ---- post-pass statics from the descriptor table ----
     kinds = descs[:, 0]
     # port-only: the kinds the table holds (the kernel's instantiation and
     # its shared memory depend on them)
     statics["KINDS"] = tuple(sorted(set(kinds.tolist()) - {0}))
-    statics["TM"] = int(descs[:, 1].max(initial=1))
+    # compute tiles only: a collective's rows (the whole batch) do not
+    # size the tile scratch
+    statics["TM"] = int(descs[kinds < REMOTE_COPY_CODE, 1].max(initial=1))
     attn = kinds == KIND_CODES[OpKind.ATTENTION_DECODE]
     statics["NG"] = int(descs[attn, 16].max(initial=1))
     statics["S_MAX"] = int(descs[attn, 3].max(initial=1))
@@ -770,7 +837,256 @@ def dynamic_tail(dyn, heap_size: int, trace: bool = False
     return out
 
 
+#: descriptor words holding absolute heap offsets, per kind code: the
+#: multichip stamp shifts exactly these (where >= 0: -1 marks an absent
+#: operand) by the chip's region base.  Words 21-23 of the COMM kinds are
+#: peer, chunk and chip count, not offsets.
+_OFFSET_WORDS = {
+    0: (),
+    KIND_CODES[OpKind.MATMUL]: (4, 6, 8, 10),
+    KIND_CODES[OpKind.RMSNORM]: (4, 6, 10),
+    KIND_CODES[OpKind.ROPE]: (4, 6, 19),
+    KIND_CODES[OpKind.GLU_MUL]: (4, 6, 8),
+    KIND_CODES[OpKind.RESIDUAL_ADD]: (4, 6, 8),   # ELEMENTWISE shares 5
+    KIND_CODES[OpKind.ATTENTION_DECODE]: (4, 6, 8, 10, 12),
+    KIND_CODES[OpKind.CACHE_UPDATE]: (4, 6, 12),
+    KIND_CODES[OpKind.EMBED_LOOKUP]: (4, 6, 8),
+    KIND_CODES[OpKind.SOFTMAX_TOPK]: (4, 6),
+    KIND_CODES[OpKind.MOE_GATHER_GEMM]: (4, 6, 8, 10, 19),
+    KIND_CODES[OpKind.MOE_COMBINE]: (4, 6, 10),
+    KIND_CODES[OpKind.SSM_UPDATE]: (4, 6, 8, 10, 12, 19, 21, 23),
+    KIND_CODES[OpKind.CONV1D_UPDATE]: (4, 6, 8, 10, 12),
+    REMOTE_COPY_CODE: (4, 6),
+    AR_CHUNK_CODE: (4, 6),
+}
+
+
+def refuse_remote_dma(statics: Mapping[str, Any]) -> None:
+    """Raise for a plan that asks for the transport between cards
+    (``REMOTE_DMA``): not ported, and never replaced by the fused one."""
+    if statics.get("REMOTE_DMA"):
+        raise NotImplementedError(
+            "REMOTE_DMA: the peer-to-peer transport between cards is not "
+            "ported; the fused transport runs every chip on one card")
+
+
+def _noop_row() -> np.ndarray:
+    d = np.zeros(DESC_WORDS, np.int64)
+    d[32] = -1
+    d[34] = -1
+    return d
+
+
+def _comm_desc(t, d0: np.ndarray, c: int, stage_sz: int, sbase: int,
+               ebase: int, chip_stride: int, n_chips: int) -> np.ndarray:
+    """The descriptor row of ring task ``t`` (a ``CommTask`` of the
+    placeholder ``d0``'s expansion) for chip ``c``, as the reference
+    lowers it: a column window over the placeholder's ``m`` rows (the
+    REAL width chunked: pad columns never enter the ring).  ``sbase`` is
+    the collective's staging base (two packed phase buffers of
+    ``stage_sz`` words per chip), ``ebase`` its first arrival event."""
+    from ..distributed.comm_tasks import MODE_INIT
+    d = _noop_row()
+    m, out_ld, src_ld = int(d0[1]), int(d0[5]), int(d0[7])
+    out0 = int(d0[4]) + c * chip_stride      # chip c's output tile
+    src0 = int(d0[6]) + c * chip_stride      # chip c's input tile
+    stage = lambda chip, phase: sbase + (chip * 2 + phase) * stage_sz
+    d[1] = m
+    d[21], d[22], d[23] = t.peer, t.chunk, n_chips
+    d[3] = t.nwords
+    if t.kind == "init":
+        d[0] = AR_CHUNK_CODE
+        d[14] = MODE_INIT
+        d[4], d[5] = out0, out_ld
+        d[6], d[7] = src0, src_ld
+        d[15], d[16] = t.own_start, t.own_len
+    elif t.kind == "send":
+        d[0] = REMOTE_COPY_CODE
+        d[6], d[7] = out0 + t.start, out_ld
+        d[4], d[5] = stage(t.peer, t.phase), t.nwords   # packed staging
+        d[10] = t.peer                       # the reference's sem lane
+        d[34] = ebase + t.sig_ev             # the peer's arrival event
+    else:                                    # recv: accumulate / store
+        d[0] = AR_CHUNK_CODE
+        d[14] = t.mode
+        d[6], d[7] = stage(c, t.phase), t.nwords
+        d[4], d[5] = out0 + t.start, out_ld
+        d[32], d[33] = ebase + t.wait_ev, 1
+    return d
+
+
+def _ring_round(t, n_chips: int) -> int:
+    """The round (0 .. C-2) of ring task ``t`` within its phase."""
+    first = 1 if t.phase == 0 else 2 * n_chips - 1
+    return (t.step - first) // 2
+
+
+def _stamp_rows(rows: np.ndarray, n_chips: int, chip_stride: int,
+                nev0: int) -> np.ndarray:
+    """``rows`` (n, DESC_WORDS) shifted for every chip: (C, n,
+    DESC_WORDS).  Chip ``c`` adds ``c * chip_stride`` to each offset word
+    of its kind that is >= 0, to the prefetch source (word 24) of a row
+    with a prefetch and to its own primary record (word 28), and ``c *
+    nev0`` to its wait and signal events, as the reference's
+    ``stamp_row`` does."""
+    off = np.zeros(rows.shape, bool)
+    for code, words in _OFFSET_WORDS.items():
+        sel = rows[:, 0] == code
+        for wd in words:
+            off[sel, wd] = rows[sel, wd] >= 0
+    off[:, 24] = rows[:, 26] > 0
+    off[:, 28] = rows[:, 30] > 0
+    ev = np.zeros(rows.shape, bool)
+    ev[:, 32] = rows[:, 32] >= 0
+    ev[:, 34] = rows[:, 34] >= 0
+    c = np.arange(n_chips, dtype=np.int64)[:, None, None]
+    return rows[None] + c * chip_stride * off + c * nev0 * ev
+
+
 def stamp_multichip(plan: MegakernelPlan, n_chips: int) -> MegakernelPlan:
-    """Per-chip task tables with in-kernel COMM tasks, the reference's
-    tensor-parallel lowering: a later slice of the port."""
-    raise NotImplementedError("the multichip lowering is not ported yet")
+    """Stamp a single-chip static plan into a ``C``-chip plan over the
+    fused transport (paper §6.5; the reference's ``stamp_multichip``,
+    table for table).
+
+    The grid is replicated per chip (worker lane ``c * W + w`` is chip
+    ``c``'s worker ``w``; every heap offset moves by the chip's region
+    base, every event id by the chip's event block), and each ALLREDUCE
+    placeholder step becomes the ``expand_ring_allreduce`` sequence over
+    the tile's REAL row width, as ``4C - 3`` full-width grid steps: at
+    inserted step ``t`` every chip runs its ring task of relative step
+    ``t`` on the lane that held the placeholder, every other lane a noop.
+    The init inherits the placeholder's wait, the last arrival its signal
+    and the prefetch plan that moved past the inserted steps (words 24-26
+    of the lane's last inserted row), as in the reference.
+
+    The chips are heap regions of one launch: one card runs the TP
+    protocol, its ring steps synchronised by the cross-chip arrival
+    events.  Port-only: the arrival counters after the reference's heap
+    and the ``acks`` side table that guards a staging buffer's reuse
+    (module docstring)."""
+    from ..distributed.comm_tasks import (expand_ring_allreduce,
+                                          n_comm_events, n_ring_steps)
+    if plan.dynamic:
+        raise NotImplementedError(
+            "tp > 1 needs the static scheduler (the dynamic ready pools "
+            "are not chip-stamped)")
+    refuse_remote_dma(plan.statics)
+    C = n_chips
+    if C <= 1:
+        return plan
+    W = plan.num_workers
+    S0 = plan.num_steps
+    Wt = C * W
+    grid0 = plan.descs
+    chip_stride = plan.event_offset          # words per chip region
+    nev0 = plan.num_events
+    K = n_ring_steps(C)
+
+    # collectives in (step, worker) order; their staging and event bases
+    colls = [(s, w) for s in range(S0) for w in range(W)
+             if grid0[s * W + w, 0] == AR_CHUNK_CODE]
+    event_off = C * chip_stride
+    n_comm_ev = len(colls) * n_comm_events(C)
+    cursor = event_off + C * nev0 + n_comm_ev
+    info = {}
+    for i, (s, w) in enumerate(colls):
+        d0 = grid0[s * W + w]
+        stage_sz = int(d0[1]) * -(-int(d0[2]) // C)
+        info[(s, w)] = (i, stage_sz, cursor, C * nev0 + i * n_comm_events(C))
+        cursor += 2 * C * stage_sz
+    stats_off = cursor
+    heap_size = stats_off + STATS_WORDS * Wt
+
+    stamped = _stamp_rows(grid0, C, chip_stride, nev0)   # (C, S0*W, 36)
+    stamped = stamped.reshape(C, S0, W, DESC_WORDS).transpose(1, 0, 2, 3) \
+        .reshape(S0, Wt, DESC_WORDS)
+    noop = _noop_row()
+    blocks: List[np.ndarray] = []
+    ack_blocks: List[np.ndarray] = []
+    ack_rows: List[Tuple[int, int, int, int]] = []   # (block, lane, word, n)
+    s_prev = 0
+    for s in sorted({s for s, _ in colls}):
+        blocks.append(stamped[s_prev:s].reshape(-1, DESC_WORDS))
+        ph = {w: grid0[s * W + w] for w in range(W)
+              if grid0[s * W + w, 0] == AR_CHUNK_CODE}
+        ring: Dict[Tuple[int, int, int], Any] = {}
+        for w, d0 in ph.items():
+            i, stage_sz, sbase, ebase = info[(s, w)]
+            for t in expand_ring_allreduce(int(d0[2]), C):
+                row = _comm_desc(t, d0, t.chip, stage_sz, sbase, ebase,
+                                 chip_stride, C)
+                # port-only guard word: (collective, receiving chip, phase)
+                if t.kind == "send" and _ring_round(t, C) > 0:
+                    word = (i * C + t.peer) * 2 + t.phase
+                    guard = (word, _ring_round(t, C))
+                elif t.kind == "recv":
+                    guard = ((i * C + t.chip) * 2 + t.phase, 0)
+                else:
+                    guard = None
+                ring[(w, t.chip, t.step)] = (row, guard)
+        for ti in range(K):
+            block = np.tile(noop, (Wt, 1))
+            for c in range(C):
+                for w in range(W):
+                    lane = c * W + w
+                    src = grid0[s * W + w]
+                    if w in ph:
+                        row, guard = ring[(w, c, ti)]
+                        row = row.copy()
+                        if ti == 0 and src[32] >= 0:
+                            # the init inherits the placeholder's wait
+                            row[32] = src[32] + c * nev0
+                            row[33] = src[33]
+                        if ti == K - 1:
+                            # the last arrival inherits the placeholder's
+                            # signal and its moved prefetch plan
+                            if src[34] >= 0:
+                                row[34] = src[34] + c * nev0
+                            if src[26] > 0:
+                                row[24:27] = src[24:27]
+                                row[24] += c * chip_stride
+                        block[lane] = row
+                        if guard is not None:
+                            ack_rows.append((len(blocks), lane) + guard)
+                    elif ti == 0:
+                        block[lane] = stamped[s, lane]
+                        block[lane, 24:27] = 0   # moved to the last step
+                    elif ti == K - 1 and src[26] > 0:
+                        block[lane, 24:27] = src[24:27]
+                        block[lane, 24] += c * chip_stride
+            blocks.append(block)
+        s_prev = s + 1
+    blocks.append(stamped[s_prev:].reshape(-1, DESC_WORDS))
+    sizes = [b.shape[0] for b in blocks]
+    grid = np.concatenate(blocks)
+    S = grid.shape[0] // Wt
+    # the prefetch pair invariant on the stamped grid: a consumer's own
+    # record equals its stream predecessor's plan
+    cons = np.nonzero(grid[Wt:, 27] == 1)[0] + Wt
+    assert (grid[cons - Wt, 24:27] == grid[cons, 28:31]).all()
+
+    statics = dict(plan.statics)
+    ring_off = 0
+    if plan.trace:
+        ring_off = heap_size
+        heap_size += TRACE_HEADER + S * Wt * TRACE_WORDS
+        statics.update({"TRACE": 1, "TR_OFF": ring_off})
+    # the reference's trailing pad (its span copies run in 256-word
+    # blocks that may read past a window; the port's never do)
+    heap_size += 256
+    ctl_offset = heap_size
+    heap_size += 2 * C * len(colls)
+    acks = np.full((grid.shape[0], 2), -1, np.int64)
+    starts = np.cumsum([0] + sizes)
+    for b, lane, word, n in ack_rows:
+        acks[starts[b] + lane] = (ctl_offset + word, n)
+    statics.update({"W": Wt, "NUM_STEPS": S, "EVENT_OFF": event_off,
+                    "N_EVENTS": C * nev0 + n_comm_ev,
+                    "STATS_OFF": stats_off, "N_CHIPS": C,
+                    "KINDS": tuple(sorted(set(statics["KINDS"])
+                                          | {REMOTE_COPY_CODE}))})
+    return MegakernelPlan(plan.compiled, grid, plan.layout, heap_size,
+                          statics, stats_off, Wt, S, event_off,
+                          C * nev0 + n_comm_ev, plan.trace, ring_off,
+                          ctl_offset=ctl_offset, n_chips=C,
+                          chip_stride=chip_stride, acks=acks)

@@ -12,10 +12,15 @@ adds one to the launch count; for a heap on the CPU it runs
 ``megakernel_plain``, and on any other device it raises.  It replaces
 the Pallas megakernel of the JAX package
 (``repro/kernels/megakernel/kernel.py`` ``make_megakernel``) for both
-schedulers and the task kinds 0-13 (the dense family's, the MoE
-family's router top-k, expert GEMM and combine, and the SSM family's
-Mamba2 state update and conv step), with its event counters and trace
-ring.
+schedulers and the task kinds 0-15 (the dense family's, the MoE
+family's router top-k, expert GEMM and combine, the SSM family's
+Mamba2 state update and conv step, and the COMM kinds of a stamped
+multichip plan: the ring send and the all-reduce chunk), with its event
+counters and trace ring.  A multichip plan runs over the fused
+transport (its chips are regions of the one heap) under the static
+scheduler; ``acks`` is then its port-only side table
+(``desc.stamp_multichip``).  A plan that asks for the remote-copy
+transport (``REMOTE_DMA``) is refused.
 
 ``megakernel_plain`` is a Python loop over the reference's grid slots,
 step-major and worker-fastest, that runs each kind with torch ops on
@@ -43,7 +48,8 @@ import torch.nn.functional as F
 
 from ..models.ssm import softplus
 from ..runtime.dyn_sched import QUEUE_CAP, QUEUE_EMPTY
-from .desc import DESC_WORDS, STATS_WORDS, TRACE_HEADER, TRACE_WORDS
+from .desc import (DESC_WORDS, STATS_WORDS, TRACE_HEADER, TRACE_WORDS,
+                   refuse_remote_dma)
 
 __all__ = ["megakernel", "megakernel_plain", "launch_count",
            "reset_launch_count", "check_plan", "check_workers",
@@ -71,6 +77,10 @@ SPIN_TIMEOUT_S = 5.0
 #: the dynamic kernel keeps the W + 1 pool occupancies of a poll in the
 #: matmul's reduction scratch (2 · 512 · 4 words)
 MAX_DYN_WORKERS = 4095
+
+#: words of one block of the reference's COMM span op (kinds 14-15): the
+#: transfer counts follow its blocks
+COMM_BLOCK = 256
 
 _ROW_SPILL = 1 << 20
 _LAUNCHES = 0
@@ -154,11 +164,14 @@ def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
 
 
 def _variant(statics: Mapping[str, Any]) -> int:
-    """The kernel instantiation the plan needs: 2 (full) for the Mamba2
-    kinds (12-13), 1 (extended) for the MoE kinds (a top-k) or a
-    masked-store chunk that is not a whole float4 group (the matmul's
-    tail pass), else 0 (dense).  Each adds its kinds to the one before,
-    and the ones before keep their code and registers."""
+    """The kernel instantiation the plan needs: 3 (multichip, static
+    only: every kind and the COMM kinds 14-15) for a stamped plan, 2
+    (full) for the Mamba2 kinds (12-13), 1 (extended) for the MoE kinds
+    (a top-k) or a masked-store chunk that is not a whole float4 group
+    (the matmul's tail pass), else 0 (dense).  Each adds its kinds to the
+    one before, and the ones before keep their code and registers."""
+    if statics.get("N_CHIPS", 1) > 1 or {14, 15} & set(_kinds(statics)):
+        return 3
     if {12, 13} & set(_kinds(statics)):
         return 2
     return int(statics.get("TOPK", 0) > 0
@@ -192,7 +205,8 @@ def check_workers(statics: Mapping[str, Any], device=None) -> None:
 
 def megakernel(heap: torch.Tensor, descs: torch.Tensor,
                statics: Mapping[str, Any],
-               sched: Optional[torch.Tensor] = None) -> None:
+               sched: Optional[torch.Tensor] = None,
+               acks: Optional[torch.Tensor] = None) -> None:
     """One decode step: run the descriptor table ``descs`` ((rows, 36)
     int64, on the heap's device) against ``heap`` (flat float32) in
     place.  The event counters and the tick must be zero, and under the
@@ -201,9 +215,18 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
     inputs); ``sched`` is then the plan's (events, 2 + max_out) int32
     scheduler table on the same device.  A table for the card must pass
     ``check_plan``; a W that cannot be resident at once is refused before
-    anything runs."""
+    anything runs.  A multichip plan takes its ``acks``: a contiguous
+    (rows, 2) int64 tensor on the heap's device; one that asks for the
+    remote-copy transport between cards (``REMOTE_DMA``) is refused."""
     global _LAUNCHES
+    refuse_remote_dma(statics)
     dyn = bool(statics.get("DYN"))
+    if acks is not None and (acks.dtype != torch.int64
+                             or tuple(acks.shape) != (descs.shape[0], 2)
+                             or not acks.is_contiguous()
+                             or acks.device != heap.device):
+        raise ValueError("acks must be a contiguous (rows, 2) int64 tensor "
+                         "on the heap's device")
     if dyn and (sched is None or sched.dtype != torch.int32
                 or sched.dim() != 2 or not sched.is_contiguous()
                 or sched.device != heap.device):
@@ -219,10 +242,12 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
     if descs.device != heap.device:
         raise ValueError("heap and descs must be on one device")
     if heap.device.type == "cpu":
-        megakernel_plain(heap, descs, statics, sched)
+        megakernel_plain(heap, descs, statics, sched, acks)
         return
     if heap.device.type != "cuda":
         raise ValueError(f"no megakernel for device {heap.device}")
+    if statics.get("N_CHIPS", 1) > 1 and acks is None:
+        raise ValueError("a multichip plan runs with its plan's acks")
     from .build import load_library
     lib = load_library()
     W = statics["W"]
@@ -249,7 +274,9 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
                             statics.get("TOPK", 0), _variant(statics),
                             statics.get("HD_SSM", 0), statics.get("N_SSM", 0),
                             statics.get("NH_TILE", 0),
-                            statics.get("W_CONV", 0), stream)
+                            statics.get("W_CONV", 0),
+                            acks.data_ptr() if acks is not None else None,
+                            stream)
     if err != 0:
         raise RuntimeError("megakernel launch failed: "
                            + lib.mk_error_string(err).decode())
@@ -352,7 +379,8 @@ class _PlainPools:
 
 
 def megakernel_plain(heap: torch.Tensor, descs,
-                     statics: Mapping[str, Any], sched=None) -> None:
+                     statics: Mapping[str, Any], sched=None,
+                     acks=None) -> None:
     """The kernel's function with torch ops, one grid slot at a time in
     the reference's order (slot ``s * W + w``): the static grid's row
     ``s * W + w``, or under the dynamic scheduler the row that worker
@@ -366,7 +394,10 @@ def megakernel_plain(heap: torch.Tensor, descs,
     consumers of an event it completes) and, with the trace ring on,
     records its two ticks; a dynamic slot that pops nothing idles, and
     records row and kind -1.  The per-worker counter blocks get the same
-    counts the kernel writes (word 11: the idle slots)."""
+    counts the kernel writes (word 11: the idle slots).  With ``acks`` (a
+    multichip plan's side table) an arrival (kind 15) adds one to its
+    counter after its task, and a send (kind 14) asserts that its counter
+    already holds the arrivals it follows, as slot order guarantees."""
     rows_list = (descs.tolist() if isinstance(descs, torch.Tensor)
                  else np.asarray(descs).tolist())
     TN, HD, G = statics["TN"], statics["HD"], statics["G"]
@@ -401,6 +432,9 @@ def megakernel_plain(heap: torch.Tensor, descs,
     ring = np.zeros((n_slots, TRACE_WORDS), np.float32)
     counts = np.zeros((W, STATS_WORDS), np.int64)
     pops = 0
+    guard = (acks.tolist() if isinstance(acks, torch.Tensor)
+             else np.asarray(acks).tolist()) if acks is not None else None
+    arrived = {}
 
     for i in range(n_slots):
         w = i % W
@@ -431,8 +465,15 @@ def megakernel_plain(heap: torch.Tensor, descs,
             n, r = _operand_transfers(d, statics, scalar)
             cnt[0] += n
             cnt[1] += r
+            word, want = guard[row] if guard is not None else (-1, 0)
+            if word >= 0 and word not in arrived:
+                arrived[word] = int(heap[word].item())
+            if word >= 0 and d[0] == 14:    # the arrivals it follows
+                assert arrived[word] >= want, (row, word, want)
             _run_task(d, tile, width, scalar, heap, TN, HD, G, half,
                       inv_freq, statics.get("TOPK", 0), statics)
+            if word >= 0 and d[0] == 15:
+                arrived[word] += 1
         ring[i] = (w, row, d[0], t_start, tick, src,
                    d[33] if d[32] >= 0 else 0, 0)
         tick += 1
@@ -453,6 +494,8 @@ def megakernel_plain(heap: torch.Tensor, descs,
     if n_ev:
         heap[ev_off:ev_off + n_ev] = torch.tensor(
             events, dtype=heap.dtype, device=heap.device)
+    for word, n in arrived.items():
+        heap[word] = float(n)
     if pools is not None:
         pools.store(heap, pops)
     if trace:
@@ -473,7 +516,10 @@ def _operand_transfers(d, statics, scalar):
     and router column per expert, the SSD update's A_log and D rows and
     per row its dt, B and C rows and the ``NH_TILE`` state tiles in and
     out, the conv step's taps and bias and per row its window in and out,
-    and the stores.  The CUDA kernel counts the same (``Counts::task``)."""
+    and the stores; a COMM task (kinds 14-15) counts one transfer of
+    three ``COMM_BLOCK``-word blocks per row and block of its window, as
+    the reference's span op does.  The CUDA kernel counts the same
+    (``Counts::task``, and the COMM tasks where it runs them)."""
     code, m = d[0], d[1]
     if code in (1, 10):                 # KCH chunks of TKC rows of K
         tk = statics["TK"]
@@ -519,12 +565,14 @@ def _operand_transfers(d, statics, scalar):
     if code == 13:
         wc, bias = statics["W_CONV"], int(d[12] >= 0)
         return 1 + bias + 3 * m, wc + bias + m * (2 * wc + 1)
+    if code in (14, 15) and d[3] > 0:   # source, destination, write-back
+        return 1, 3 * -(-d[3] // COMM_BLOCK) * m
     return 0, 0
 
 
 def _run_task(d, tile, width, scalar, heap, TN, HD, G, half, inv_freq,
               topk, statics=None):
-    """One task of kind ``d[0]`` (1-13) on the heap, in place; the
+    """One task of kind ``d[0]`` (1-15) on the heap, in place; the
     Mamba2 kinds (12-13) read their shapes from ``statics``."""
     code, m = d[0], d[1]
     if code == 1:                       # matmul + bias + activation
@@ -647,5 +695,18 @@ def _run_task(d, tile, width, scalar, heap, TN, HD, G, half, inv_freq,
                                      d[10] + t * d[11] + ws]
         win.copy_(new)
         tile(d[4], d[5], m, ws).copy_(F.silu(y))
+    elif code in (14, 15):              # COMM: a window of d[3] words a row
+        nw = d[3]
+        if nw <= 0:
+            return
+        src, dst = tile(d[6], d[7], m, nw), tile(d[4], d[5], m, nw)
+        if code == 14 or d[14] == 2:    # send; an all-gather arrival
+            dst.copy_(src)
+        elif d[14] == 1:                # a reduce-scatter arrival
+            dst.copy_(dst + src)
+        else:                           # owner-masked init
+            rel = torch.arange(nw, device=heap.device)
+            own = (rel >= d[15]) & (rel < d[15] + d[16])
+            dst.copy_(torch.where(own, src, torch.zeros_like(src)))
     else:
         raise NotImplementedError(f"megakernel task kind {code}")

@@ -22,6 +22,16 @@ live program, as the reference's executor does:
 * a dynamic plan's scheduler table goes to the device once, and so do
   the idle entries of its pop trace and ring (the slots past T of the
   reference's grid, which the kernel never writes).
+
+``tp > 1`` compiles the TP graph (ALLREDUCE after every output
+projection) and stamps the plan for ``tp`` chips over the fused
+transport (``desc.stamp_multichip``): C copies of the tensor region in
+one heap, the collectives run as COMM tasks of the one launch.  The
+executor writes the per-step inputs into every chip's region, zeroes the
+arrival counters with the events, builds the weights in chip 0's region
+and copies it to the others on the device, writes state into chip 0 and
+copies it likewise, and reads logits and state from chip 0 (every chip
+holds the same bits).
 """
 from __future__ import annotations
 
@@ -36,8 +46,8 @@ from ..core.lowering import build_decode_graph
 from ..device import resolve_device
 from ..models.lm import fill_params
 from ..runtime.dyn_sched import QUEUE_EMPTY
-from .desc import (CTL_WORDS, STATS_WORDS, TRACE_HEADER, TRACE_WORDS,
-                   MegakernelPlan, lower_tgraph)
+from .desc import (STATS_WORDS, TRACE_HEADER, TRACE_WORDS,
+                   MegakernelPlan, lower_tgraph, stamp_multichip)
 from .kernel import check_plan, check_workers, megakernel
 
 __all__ = ["compile_decode_megakernel", "MegakernelExecutor",
@@ -83,6 +93,7 @@ def read_stats_block(heap: torch.Tensor, stats_offset: int,
 def compile_decode_megakernel(cfg, batch: int, max_seq: int,
                               *, num_workers: int = 1,
                               scheduler: str = "static",
+                              tp: int = 1,
                               trace: bool = False) -> MegakernelPlan:
     """Lower cfg's decode step: op graph → tGraph → descriptors, with the
     reference's default compile options (tile rows capped at 8, the
@@ -92,13 +103,21 @@ def compile_decode_megakernel(cfg, batch: int, max_seq: int,
     "dynamic" (the ready pools of ``runtime/dyn_sched.py``, with the
     partition as the affinity hint); ``trace`` adds the trace ring to
     the heap.  ``lower_tgraph(plan.compiled, cfg, scheduler=...)`` lowers
-    the other scheduler's plan from the same compiled graph."""
-    g = build_decode_graph(cfg, batch, max_seq)
+    the other scheduler's plan from the same compiled graph.  ``tp > 1``
+    inserts the ALLREDUCE ops and stamps the plan for ``tp`` chips, whose
+    C · W worker lanes must all be resident on the card (static
+    scheduler only, as in the reference)."""
+    if tp > 1 and scheduler != "static":
+        raise NotImplementedError(
+            "tp > 1 megakernels require scheduler='static' (the dynamic "
+            "ready pools are not chip-stamped)")
+    g = build_decode_graph(cfg, batch, max_seq, tp=tp)
     opts = CompileOptions(decompose=DecomposeConfig(max_rows=8),
                           num_workers=num_workers, scheduler=scheduler,
                           trace=trace)
-    return lower_tgraph(megakernelize(g, opts), cfg, scheduler=scheduler,
+    plan = lower_tgraph(megakernelize(g, opts), cfg, scheduler=scheduler,
                         trace=trace)
+    return stamp_multichip(plan, tp) if tp > 1 else plan
 
 
 class MegakernelExecutor:
@@ -128,13 +147,14 @@ class MegakernelExecutor:
         # flat heap indices of every per-step input element, in one
         # int64 index for the per-step index_copy_
         idx, self._entries = [], []
+        chips = np.arange(plan.n_chips, dtype=np.int64) * plan.chip_stride
         for name in classes["per_step"]:
             slot = plan.layout[name]
             cols = slot.shape[-1]
             grid = (slot.offset + np.arange(slot.rows)[:, None] * slot.ld
                     + np.arange(cols)[None, :])
             self._entries.append((name, slot.rows * cols))
-            idx.append(grid.ravel())
+            idx.append((chips[:, None] + grid.ravel()[None, :]).ravel())
         # counters the kernel counts up, zeroed before every launch, and
         # under the dynamic scheduler the queue image it consumes
         tail = [np.zeros((plan.num_events,), np.float32)]
@@ -152,14 +172,16 @@ class MegakernelExecutor:
         if plan.trace:
             tail.append(np.zeros((1,), np.float32))
             idx.append(np.array([plan.ring_offset]))
-        if plan.dynamic:
-            tail.append(np.zeros((CTL_WORDS,), np.float32))
-            idx.append(np.arange(plan.ctl_offset,
-                                 plan.ctl_offset + CTL_WORDS))
+        # the ticket, or a multichip plan's arrival counters
+        tail.append(np.zeros((plan.ctl_words,), np.float32))
+        idx.append(np.arange(plan.ctl_offset,
+                             plan.ctl_offset + plan.ctl_words))
         self._tail = np.concatenate(tail)
         self._upd_idx = torch.from_numpy(
             np.concatenate(idx).astype(np.int64)).to(self.device)
         self._descs = torch.from_numpy(plan.descs).to(self.device)
+        self._acks = None if plan.acks is None else \
+            torch.from_numpy(plan.acks).to(self.device)
         self.heap: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------ the heap
@@ -187,23 +209,34 @@ class MegakernelExecutor:
                     = torch.from_numpy(idle.ravel()).to(self.device)
 
     def bind(self, params: Mapping[str, torch.Tensor]) -> None:
-        """Build the heap from graph-named weights, one tensor at a time;
-        state and per-step slots start at zero."""
+        """Build the heap from graph-named weights, one tensor at a time
+        into chip 0's region (then copied to the other chips'); state and
+        per-step slots start at zero."""
         heap = self.plan.alloc_heap(self.device)
         for name in self._weights:
             w = params["embed"].T if (name == "lm_head"
                                       and "lm_head" not in params) \
                 else params[name]
             self.plan.view(heap, name).copy_(w)
+        self._replicate(heap, 0, self.plan.chip_stride)
         self.upload(heap)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Build the heap with random weights drawn straight into their
-        slots (``models.lm.fill_params``): no second copy of the weights
-        ever exists."""
+        slots of chip 0's region (``models.lm.fill_params``), then copied
+        to the other chips' on the device: no copy of the weights outside
+        the heap ever exists."""
         heap = self.plan.alloc_heap(self.device)
         fill_params(self.cfg, self._views(heap, self._weights), generator)
+        self._replicate(heap, 0, self.plan.chip_stride)
         self.upload(heap)
+
+    def _replicate(self, heap: torch.Tensor, lo: int, hi: int) -> None:
+        """Copy words [lo, hi) of chip 0's region into every other
+        chip's (a device copy each)."""
+        for c in range(1, self.plan.n_chips):
+            base = c * self.plan.chip_stride
+            heap[base + lo:base + hi].copy_(heap[lo:hi])
 
     def _views(self, heap, names) -> Dict[str, torch.Tensor]:
         return {n: self.plan.view(heap, n) for n in names}
@@ -215,25 +248,34 @@ class MegakernelExecutor:
 
     # --------------------------------------------------------------- state
     def reset_state(self, slot: Optional[int] = None) -> None:
-        """Zero the KV cache in place: one batch row, or all of them."""
-        for v in self._views(self.heap, self._state).values():
-            (v if slot is None else v[slot]).zero_()
+        """Zero the state in place, in every chip's region: one batch
+        row, or all of them."""
+        for c in range(self.plan.n_chips):
+            for n in self._state:
+                v = self.plan.view(self.heap, n, c)
+                (v if slot is None else v[slot]).zero_()
 
     def read_state(self) -> Dict[str, torch.Tensor]:
-        """A copy of every state tensor (graph-shaped), weights untouched."""
+        """A copy of every state tensor (graph-shaped) of chip 0, weights
+        untouched."""
         return {n: v.clone() for n, v in
                 self._views(self.heap, self._state).items()}
 
     def write_state(self, tensors: Mapping[str, torch.Tensor]) -> None:
-        """Write new values for every state tensor into the heap."""
+        """Write new values for every state tensor into chip 0's region
+        and copy each state slot to the other chips' on the device."""
         for n, v in self._views(self.heap, self._state).items():
             v.copy_(tensors[n])
+            slot = self.plan.layout[n]
+            self._replicate(self.heap, slot.offset,
+                            slot.offset + slot.rows * slot.ld)
         self.state_scatter_count += 1
 
     # ---------------------------------------------------------------- steps
     def write_step_inputs(self, tokens, seq_lens, positions=None) -> None:
-        """Write one step's tokens, positions and lengths into the heap,
-        zero the event counters and the tick and, under the dynamic
+        """Write one step's tokens, positions and lengths into the heap
+        (every chip's region), zero the event counters, the tick and a
+        multichip plan's arrival counters and, under the dynamic
         scheduler, rewrite the initial queue image and zero the
         ticket (one ``index_copy_``)."""
         lens = np.asarray(seq_lens, np.int64)
@@ -241,7 +283,8 @@ class MegakernelExecutor:
                 "live_lens": lens + 1,
                 "positions": lens if positions is None
                 else np.asarray(positions)}
-        flat = np.concatenate([np.asarray(vals[n], np.float32).reshape(size)
+        flat = np.concatenate([np.tile(np.asarray(vals[n], np.float32)
+                                       .reshape(size), self.plan.n_chips)
                                for n, size in self._entries]
                               + [self._tail])
         self.heap.index_copy_(0, self._upd_idx,
@@ -251,11 +294,13 @@ class MegakernelExecutor:
         """One kernel launch over the whole descriptor table; it follows
         ``write_step_inputs``, which zeroes the counters it counts up and
         rewrites the queue image."""
-        megakernel(self.heap, self._descs, self.plan.statics, self._sched)
+        megakernel(self.heap, self._descs, self.plan.statics, self._sched,
+                   self._acks)
 
     def step(self, tokens, seq_lens, positions=None) -> torch.Tensor:
         """One decode step inside the kernel; returns the logits (B, V) on
-        the device.  The cache advances in the resident heap."""
+        the device (chip 0's).  The cache advances in the resident
+        heap."""
         assert self.heap is not None, "bind() before step()"
         self.write_step_inputs(tokens, seq_lens, positions)
         self.launch()

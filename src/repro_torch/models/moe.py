@@ -71,11 +71,14 @@ def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
     h = act(h[..., 0, :]) * h[..., 1, :]                  # (E, C, F)
     yo = torch.einsum("ecf,efd->ecd", h, w2.to(x2d.dtype))
 
-    # ---- weighted scatter-combine; dropped rows add nothing ----
+    # ---- weighted combine; dropped rows add nothing ----
+    # each kept (token, k) choice has one (expert, slot) row: put it in
+    # place, then sum a token's K choices in order (no atomics, so the
+    # bits do not change from run to run on the card)
     wrow = (flat_w[srows] * valid).to(x2d.dtype)          # (E, C)
-    y = torch.zeros((t, d), dtype=x2d.dtype, device=x2d.device)
-    y.index_add_(0, token[valid], (yo * wrow[..., None])[valid])
-    return y
+    per = torch.zeros((t * top_k, d), dtype=x2d.dtype, device=x2d.device)
+    per[srows[valid]] = (yo * wrow[..., None])[valid]
+    return per.view(t, top_k, d).sum(1)
 
 
 def moe_ffn(x2d: torch.Tensor, p: Mapping[str, torch.Tensor], cfg: Any, *,

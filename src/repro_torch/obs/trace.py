@@ -42,7 +42,7 @@ class TaskEvent:
     end: float
     source: int = -1   # pop source: -1 under the static scheduler
     wait_cnt: int = 0  # event-wait trigger count (0 = no wait word)
-    chip: int = 0      # chip (always 0: one card)
+    chip: int = 0      # chip of a stamped multichip plan
     wait_ev: int = -1  # descriptor wait-event id (word 32)
     sig_ev: int = -1   # descriptor signal-event id (word 34)
 
@@ -85,13 +85,18 @@ def decode_ring(plan, ring: np.ndarray) -> TaskTrace:
     row word is the descriptor row: under the dynamic scheduler the
     linearized position (task id ``compiled.order[row]``), under the
     static one the grid slot, which maps back through the worker
-    partition."""
+    partition.  A stamped multichip grid (COMM tasks, per-chip copies)
+    maps no row to one task: its events keep ``task=-1``, and each
+    carries the chip of its worker lane."""
     assert ring.ndim == 2 and ring.shape[1] == TRACE_WORDS
     W = plan.num_workers
+    n_chips = max(1, plan.n_chips)
+    w_per_chip = max(1, W // n_chips)
+    row_tid: Dict[int, int] = {}
     if plan.scheduler == "dynamic":
         order = plan.compiled.order
         row_tid = {r: order[r] for r in range(len(order))}
-    else:
+    elif n_chips == 1:
         part = plan.compiled.partition
         row_tid = {part.step_of[t] * W + part.worker_of[t]: t
                    for t in part.step_of}
@@ -112,12 +117,13 @@ def decode_ring(plan, ring: np.ndarray) -> TaskTrace:
             end=float(rec[4]),
             source=int(rec[5]),
             wait_cnt=int(rec[6]),
+            chip=int(rec[0]) // w_per_chip,
             wait_ev=int(d[32]),
             sig_ev=int(d[34]),
         ))
     return TaskTrace(
         origin="kernel", scheduler=plan.scheduler, num_workers=W,
-        events=events,
+        events=events, n_chips=n_chips,
         meta={"num_steps": plan.num_steps,
               "ring_slots": int(ring.shape[0]),
               "time_unit": "tick"})

@@ -184,12 +184,16 @@ def test_replay_and_simulation_match_reference(workers):
 
 
 def test_mpk_dyn_reduces_to_the_static_replay_at_w1():
-    _, port_c = _compiled_pair(_cfg(1), 1)
+    """``mpk_dyn`` at W=1 is the static replay; ``mpk_tp`` at tp=2 runs
+    and equals the reference's makespan and worker busy times."""
+    ref_c, port_c = _compiled_pair(_cfg(1), 1)
     st = simulate(port_c, SimConfig(mode="mpk", n_workers=1))
     dy = simulate(port_c, SimConfig(mode="mpk_dyn", n_workers=1))
     assert dy.makespan == pytest.approx(st.makespan, rel=1e-12)
-    with pytest.raises(NotImplementedError):
-        simulate(port_c, SimConfig(mode="mpk_tp", tp=2))
+    got = simulate(port_c, SimConfig(mode="mpk_tp", tp=2))
+    want = ref_simulate(ref_c, RefSimConfig(mode="mpk_tp", tp=2))
+    assert got.makespan == want.makespan
+    assert got.worker_busy == want.worker_busy
 
 
 # ---------------------------------------------------------------------------

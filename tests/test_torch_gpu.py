@@ -661,3 +661,128 @@ def _check_conv_windows(plan, heap, plain):
                                plan.view(h, src)), win
         assert torch.equal(plan.view(heap, win)[:, :-1],
                            plan.view(plain, win)[:, :-1]), win
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the fused transport: kinds 14-15.
+# ---------------------------------------------------------------------------
+
+
+def _tp_bindings(cfg, cuda, seed=3):
+    """Random weights and a random cache as graph bindings on the card
+    (one set for every TP degree)."""
+    from repro_torch.core.lowering import decode_bindings
+    from repro_torch.models.lm import init_cache, init_params
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    params = init_params(cfg, gen, device=cuda)
+    cache = {k: torch.randn(v.shape, generator=gen, device=cuda)
+             for k, v in init_cache(cfg, B, S, device=cuda).items()}
+    return decode_bindings(cfg, params, cache, np.array([3, 7]),
+                           np.array([1, 12]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tp", [2, 4])
+def test_cuda_comm_kinds_match_plain_version(cuda, tp):
+    """Kinds 14 (ring send) and 15 (all-reduce chunk) alone at TP ∈ {2,
+    4}, W = 2: on a heap where the plain version has run the whole step,
+    the table with every other row a noop (its event words kept) runs on
+    the card and in the plain version from the same image, counters
+    zeroed.  Every collective's output, on every chip, the staging
+    buffers and the arrival counters are bitwise the plain version's,
+    the outputs bitwise equal across chips, the counter blocks equal, no
+    violation."""
+    cfg = _cfg(1)
+    plan = compile_decode_megakernel(cfg, B, S, num_workers=2, tp=tp)
+    assert plan.n_chips == tp and plan.num_workers == 2 * tp
+    ex = MegakernelExecutor(plan, cfg, cuda)
+    ex.upload(plan.build_heap(_tp_bindings(cfg, cuda), cuda))
+    toks, lens = np.array([3, 7]), np.array([1, 12])
+    ex.write_step_inputs(toks, lens)
+    megakernel_plain(ex.heap, plan.descs, plan.statics, acks=plan.acks)
+    ex.write_step_inputs(toks, lens)      # zero the counters again
+    table = plan.descs.copy()
+    table[~np.isin(table[:, 0], (14, 15)), 0] = 0
+    plain = ex.heap.clone()
+    reset_launch_count()
+    megakernel(ex.heap, torch.from_numpy(table).to(cuda), plan.statics,
+               acks=ex._acks)
+    torch.cuda.synchronize()
+    assert launch_count() == 1
+    megakernel_plain(plain, table, plan.statics, acks=plan.acks)
+    outs = [n for n in plan.layout if n.endswith(("o_ar", "ffn_ar"))]
+    assert len(outs) == 2
+    for n in outs:
+        for c in range(tp):
+            got = plan.view(ex.heap, n, c)
+            assert torch.equal(got, plan.view(plain, n, c)), (n, c)
+            assert torch.equal(got, plan.view(ex.heap, n, 0)), (n, c)
+    lo = plan.event_offset
+    assert torch.equal(ex.heap[lo:plan.stats_offset],
+                       plain[lo:plan.stats_offset])
+    assert torch.equal(ex.heap[plan.ctl_offset:], plain[plan.ctl_offset:])
+    counters = read_stats_block(ex.heap, plan.stats_offset, plan.num_workers)
+    assert counters == read_stats_block(plain, plan.stats_offset,
+                                        plan.num_workers)
+    assert all(c["event_wait_violations"] == 0 for c in counters)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-7b", "granite-moe-1b-a400m"])
+def test_cuda_tp_step_bitwise_across_tp_chips_and_workers(cuda, arch):
+    """Two layers, TP ∈ {1, 2, 4} × W ∈ {1, 2}: logits bitwise equal
+    across TP, W and chips, each within 2e-4 of its plain version, no
+    violation, one launch a step; traced at TP = 2 with a clean event
+    order."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=2)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    binds = _tp_bindings(cfg, cuda)
+    want = None
+    for tp in (1, 2, 4):
+        for w in (1, 2):
+            plan = compile_decode_megakernel(cfg, B, S, num_workers=w, tp=tp,
+                                             trace=(tp, w) == (2, 2))
+            ex = MegakernelExecutor(plan, cfg, cuda)
+            ex.upload(plan.build_heap(binds, cuda))
+            ex.write_step_inputs(np.array([3, 7]), np.array([1, 12]))
+            plain = ex.heap.clone()
+            reset_launch_count()
+            ex.launch()
+            torch.cuda.synchronize()
+            assert launch_count() == 1
+            got = plan.view(ex.heap, "logits").clone()
+            want = got if want is None else want
+            assert torch.equal(got, want), (tp, w)
+            for c in range(plan.n_chips):
+                assert torch.equal(plan.view(ex.heap, "logits", c), got)
+            assert all(c["event_wait_violations"] == 0
+                       for c in ex.worker_counters())
+            megakernel_plain(plain, plan.descs, plan.statics, acks=plan.acks)
+            torch.testing.assert_close(got, plan.view(plain, "logits"),
+                                       rtol=2e-4, atol=2e-4)
+            if plan.trace:
+                tl = decode_ring(plan, ex.task_ring())
+                assert check_event_order(tl) == []
+                assert {e.chip for e in tl.events} == {0, 1}
+
+
+@pytest.mark.gpu
+def test_cuda_tp2_chip_isolation(cuda):
+    """The chip regions are disjoint on the card: scaling chip 1's wq by
+    1 + 2^-10 moves both chips' logits away from the clean run (chip 1's
+    owned ring chunks carry its compute to chip 0), and the ring still
+    leaves the two chips bitwise equal."""
+    cfg = _cfg(1)
+    plan = compile_decode_megakernel(cfg, B, S, tp=2)
+    ex = MegakernelExecutor(plan, cfg, cuda)
+    heap = plan.build_heap(_tp_bindings(cfg, cuda), cuda)
+    ex.upload(heap.clone())
+    toks, lens = np.array([3, 7]), np.array([1, 12])
+    clean = ex.step(toks, lens)
+    plan.view(heap, "L0.wq", 1).mul_(1.0009765625)
+    ex.upload(heap)
+    ex.step(toks, lens)
+    c0, c1 = (plan.view(ex.heap, "logits", c) for c in (0, 1))
+    assert not torch.equal(c0, clean) and not torch.equal(c1, clean)
+    assert torch.equal(c0, c1)

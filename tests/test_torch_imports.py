@@ -20,7 +20,8 @@ bad = sorted(n for n in sys.modules
              or n == "repro" or n.startswith("repro."))
 need = ("repro_torch.runtime.dyn_sched", "repro_torch.core.runtime_sim",
         "repro_torch.models.moe", "repro_torch.models.ssm",
-        "repro_torch.core.task_semantics")
+        "repro_torch.core.task_semantics", "repro_torch.distributed",
+        "repro_torch.distributed.comm_tasks")
 missing = [m for m in need if m not in sys.modules]
 n = sum(1 for k in sys.modules if k.startswith("repro_torch"))
 print("BAD", bad, "MISSING", missing, "N", n)
@@ -78,10 +79,11 @@ def test_later_slices_raise():
 
 
 def test_later_lowerings_raise():
-    """The multichip stamp is a later slice: asking for it raises.  The
-    dynamic scheduler is ported: it lowers to a flat table with the ready
-    pools in the heap.  The trace ring is ported: it is appended to the
-    heap."""
+    """The multichip stamp is ported for the static scheduler: stamping a
+    dynamic plan raises, and so does a plan that asks for the remote-copy
+    transport (there is no fallback to the fused one).  The dynamic
+    scheduler is ported: it lowers to a flat table with the ready pools in
+    the heap.  The trace ring is ported: it is appended to the heap."""
     from repro_torch.configs import get_config
     from repro_torch.core.compile import CompileOptions, megakernelize
     from repro_torch.core.lowering import build_decode_graph
@@ -98,4 +100,8 @@ def test_later_lowerings_raise():
         lower_tgraph(compiled, cfg, trace=True)
     assert traced.trace and traced.ring_offset == plain.heap_size
     with pytest.raises(NotImplementedError):
-        stamp_multichip(lower_tgraph(compiled, cfg), 2)
+        stamp_multichip(dyn, 2)
+    static = lower_tgraph(compiled, cfg)
+    static.statics["REMOTE_DMA"] = 1
+    with pytest.raises(NotImplementedError):
+        stamp_multichip(static, 2)
