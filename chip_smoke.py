@@ -9,7 +9,9 @@ W_max is the card's SM count (132 on an H100): the megakernel is asked
 for that many workers, and the partitioner picks the width it uses.
 
 1. prints the card's name and power limit, then builds the CUDA
-   megakernel from ``src/repro_torch/megakernel/csrc`` for sm_90a; a W
+   megakernel from ``src/repro_torch/megakernel/csrc`` and the standalone
+   kernels from ``src/repro_torch/kernels/csrc`` for sm_90a (two nvcc
+   processes at once) and prints their registers and spills; a W
    larger than the CTAs the card holds at once is refused before launch,
    and a wait on an event nobody signals, and a dynamic plan whose one
    event never triggers, each fail their process at the deadline (child
@@ -89,10 +91,19 @@ for that many workers, and the partitioner picks the width it uses.
    3b's and within 3e-4 of the torch Program, the static step timed at
    TP=2 and TP=4 beside its bound (every chip's bytes and the ring's),
    kinds 14-15 timed together;
-4. prints the bounds of the standalone kernels still to port beside one
-   PyTorch call that computes the same function, one JSON line on the
-   kernels (launches on the main paths, the largest error against the
-   plain version over all, times, the bounds) and the device line last.
+4. the standalone kernels (``repro_torch.kernels``: matmul, rmsnorm and
+   flash attention, hand-written CUDA built beside the megakernel in
+   phase 1) at the largest f32 shapes of ``tests/test_kernels.py`` (and
+   its non-causal case) and at deepseek-7b's full width, f32 and bf16:
+   each launched through its entry point and held to its plain version
+   (f32 at the reference's tolerances, bf16 to one ulp with at most 1 %
+   of the outputs' bits differing), each library call
+   (``torch.matmul``, ``F.rms_norm``, ``F.scaled_dot_product_attention``)
+   to the oracle at the reference's tolerances, then each timed beside
+   its plain version, the library call and its bounds (bf16 at the
+   tensor cores' peak).  Then one JSON line on the kernels (launches on the main
+   paths, the largest error against the plain version over all, times,
+   the bounds) and the device line last.
    Every phase prints its wall time.
 """
 import dataclasses
@@ -102,6 +113,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -114,6 +126,7 @@ SEED = 0
 B, S = 2, 128
 H100_HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 H100_F32_FLOPS = 67e12             # float32 outside the tensor cores
+H100_BF16_TC_FLOPS = 989e12        # dense bf16 on the tensor cores
 
 
 def log(*a):
@@ -132,12 +145,28 @@ def _events_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def _close(a, b, tol):
-    """max |a - b| after checking |a - b| <= tol + tol * |b| everywhere."""
+def _device_ms(fn, n, key=None):
+    """Mean device milliseconds per call of ``fn`` over ``n`` calls, by
+    ``torch.profiler``: the CUDA kernels whose name holds ``key`` (all of
+    them when None); None if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_time_total > 0 and (key is None or key in e.key))
+    return total / n / 1e3 if total else None
+
+
+def _close(a, b, tol, atol=None):
+    """max |a - b| after checking |a - b| <= atol + tol * |b| everywhere
+    (atol = tol unless given)."""
+    atol = tol if atol is None else atol
     a, b = a.float(), b.float()
     assert torch.isfinite(a).all() and torch.isfinite(b).all()
     err = (a - b).abs()
-    assert bool((err <= tol + tol * b.abs()).all()), float(err.max())
+    assert bool((err <= atol + tol * b.abs()).all()), float(err.max())
     return float(err.max())
 
 
@@ -146,10 +175,16 @@ def phase_build():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     log(smi.stdout.strip().splitlines()[0])
+    from repro_torch.kernels.build import build_library as build_standalone
     from repro_torch.megakernel.build import build_library
     t0 = time.perf_counter()
-    path, out = build_library()
-    log(f"phase 1 ok: built {path.name} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:  # one nvcc per source, together
+        standalone = pool.submit(build_standalone)
+        path, out = build_library()
+        spath, sout = standalone.result()
+    log(f"phase 1 ok: built {path.name} and {spath.name} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _log_standalone_ptxas(sout)
     names = {"ILb0ELi0E": "static", "ILb1ELi0E": "dynamic",
              "ILb0ELi1E": "static extended", "ILb1ELi1E": "dynamic extended",
              "ILb0ELi2E": "static full", "ILb1ELi2E": "dynamic full",
@@ -683,10 +718,11 @@ def _step_work(plan, cfg, lens, heap=None):
     return nbytes, flops
 
 
-def _bound(work):
+def _bound(work, flops_per_s=H100_F32_FLOPS):
     """(ms, "bytes" or "operations") of a step's (bytes, FLOPs) on the
-    H100's published rates."""
-    t_b, t_f = work[0] / H100_HBM_BYTES_PER_S, work[1] / H100_F32_FLOPS
+    H100's published rates: its memory rate and the peak for the data
+    type (f32 unless given)."""
+    t_b, t_f = work[0] / H100_HBM_BYTES_PER_S, work[1] / flops_per_s
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
@@ -1461,42 +1497,224 @@ def phase_tp_serve(cfg, w_max, tag):
             "served_max_err": worst}
 
 
-def standalone_bounds():
-    """The standalone TPU kernels still to port, at the largest float32
-    shape of ``tests/test_kernels.py``: each one's bound (each input read
-    once, the output written once; causal attention does half the
-    products) beside the time of the one PyTorch call that computes the
-    same function (CUDA events over 100 calls after 10 warm-up calls,
-    TF32 off).  Returns (name, shape, bytes, FLOPs, bound ms, bound by,
-    library call, library ms) per kernel."""
-    import torch.nn.functional as F
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+#: phase 4's cases: (kernel, label, dims, keywords); (a) the largest
+#: float32 shapes of tests/test_kernels.py (PERF.md's table) and its
+#: non-causal case, (b) deepseek-7b at full width: the up-projection of a
+#: B=2, 128-token prefill chunk, its rmsnorm, and causal attention over
+#: deepseek-llm-7b's 4096-token context (32 heads of 128)
+STANDALONE_CASES = (
+    ("matmul", "test", (384, 128, 384), {}),
+    ("matmul", "full", (256, 4096, 11008), {}),
+    ("rmsnorm", "test", (256, 512), {}),
+    ("rmsnorm", "full", (256, 4096), {}),
+    ("flash_attention", "test", (2, 256, 4, 64), {"bq": 128, "bk": 64}),
+    ("flash_attention", "test non-causal", (1, 128, 2, 64),
+     {"bq": 64, "bk": 64, "causal": False}),
+    ("flash_attention", "full", (1, 4096, 32, 128), {}),
+)
+
+#: (rtol, atol) of a kernel against its plain version, f32 then bf16.
+#: f32: the reference's (tests/test_kernels.py:22, :35, :52, :66).  bf16:
+#: both sides compute in f32 (in other orders) and round once, so they
+#: differ by at most one bf16 ulp, 2^-7 of the value at most: rtol 8e-3,
+#: and an atol for outputs near zero, where the f32 orders' difference
+#: is the larger (matmul's 1.41e-5 at K = 4096, PERF.md §2).  Both are
+#: tighter than the reference's bf16 3e-2, which at full width is about
+#: the size of a typical flash-attention output (|o| ~ 0.03 at S = 4096).
+STANDALONE_TOL = {"matmul": ((1e-4, 1e-4), (8e-3, 1e-3)),
+                  "rmsnorm": ((1e-5, 1e-5), (8e-3, 1e-3)),
+                  "flash_attention": ((2e-5, 2e-5), (8e-3, 1e-4))}
+
+#: the share of bf16 outputs whose bits may differ from the plain
+#: version's: a one-ulp fault (a truncating f32 -> bf16 store, a drift in
+#: a load) moves about half of them and passes any rtol above one ulp;
+#: one f32 rounding order against another moves the few that lie near a
+#: rounding boundary
+STANDALONE_BF16_DIFFER = 0.01
+
+#: the library call against the oracle of repro_torch.kernels.ref: the
+#: reference's tolerances (rtol = atol, f32 then bf16); the library may
+#: round inside (SDPA's bf16 probabilities), so it is a check that the
+#: yardstick computes the same function, not of a kernel
+LIBRARY_TOL = {"matmul": (1e-4, 2e-2), "rmsnorm": (1e-5, 3e-2),
+               "flash_attention": (2e-5, 3e-2)}
+
+#: the kernels' symbols, for the profiler
+STANDALONE_SYMBOLS = {"matmul": "matmul_kernel", "rmsnorm": "rmsnorm_kernel",
+                      "flash_attention": "flash_kernel"}
+
+STANDALONE_REPLACES = {"matmul": "src/repro/kernels/matmul.py:48",
+                       "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
+                       "flash_attention":
+                           "src/repro/kernels/flash_attention.py:77"}
+
+
+def _standalone_label(line):
+    """"matmul f32", "flash_attention bf16 hd=128", ... for a ptxas line
+    that names one of the standalone kernels, else None."""
+    for name, sym in STANDALONE_SYMBOLS.items():
+        if sym in line:
+            rest = line.split(sym, 1)[1]
+            label = name + (" bf16" if rest.startswith("I13__nv_bfloat16")
+                            else " f32")
+            for hd in ("64", "128"):
+                if f"Li{hd}E" in rest:
+                    label += f" hd={hd}"
+            return label
+    return None
+
+
+def _log_standalone_ptxas(out):
+    which = None
+    for line in out.splitlines():
+        if "Compiling" in line or "Function properties" in line:
+            which = _standalone_label(line)
+        elif which and ("registers" in line or "spill" in line):
+            log(f"  nvcc, {which}:", line.strip())
+
+
+def _standalone_inputs(name, dims, gen):
+    """f32 inputs drawn as a model's are (the matmul's weight scaled by
+    1/sqrt(K)); the bf16 inputs are their casts."""
     rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
-    m, k, n = 384, 128, 384
-    a, b = rnd(m, k), rnd(k, n)
-    rows, d = 256, 512
-    x, w = rnd(rows, d), rnd(d)
-    bb, s, h, hd = 2, 256, 4, 64
-    q, kk, v = rnd(bb, h, s, hd), rnd(bb, h, s, hd), rnd(bb, h, s, hd)
-    cases = [
-        ("matmul", f"({m},{k})x({k},{n})", 4 * (m * k + k * n + m * n),
-         2 * m * k * n, "torch.matmul", lambda: torch.matmul(a, b)),
-        ("rmsnorm", f"({rows},{d})", 4 * (2 * rows * d + d), 4 * rows * d,
-         "torch.nn.functional.rms_norm",
-         lambda: F.rms_norm(x, (d,), w, 1e-6)),
-        ("flash_attention", f"causal B={bb} S={s} H={h} hd={hd}",
-         4 * 4 * bb * s * h * hd, 4 * bb * h * s * s * hd // 2,
-         "torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
-         lambda: F.scaled_dot_product_attention(q, kk, v, is_causal=True)),
-    ]
-    out = []
-    for name, shape, nbytes, flops, call, fn in cases:
+    if name == "matmul":
+        m, k, n = dims
+        return rnd(m, k), rnd(k, n) / k ** 0.5
+    if name == "rmsnorm":
+        rows, d = dims
+        return rnd(rows, d), rnd(d)
+    return rnd(*dims), rnd(*dims), rnd(*dims)
+
+
+def _standalone_work(name, dims, kw, itemsize):
+    """(bytes, FLOPs) of one call: each input read once, the output
+    written once; causal attention does the s(s+1)/2 products of its
+    visible pairs."""
+    if name == "matmul":
+        m, k, n = dims
+        return itemsize * (m * k + k * n + m * n), 2 * m * k * n
+    if name == "rmsnorm":
+        rows, d = dims
+        return itemsize * (2 * rows * d + d), 4 * rows * d
+    b, s, h, hd = dims
+    pairs = s * (s + 1) // 2 if kw.get("causal", True) else s * s
+    return itemsize * 4 * b * s * h * hd, 4 * b * h * hd * pairs
+
+
+def phase_standalone():
+    """Phase 4: the standalone kernels through ``repro_torch.kernels``, the
+    entry point a user calls, on phase 1's build of the library.
+    Launches each kernel at every case of
+    ``STANDALONE_CASES`` in f32 and bf16 (the path: launch counts reset
+    just before and read just after, each kernel launched once a case)
+    and holds each output to its plain version within
+    ``STANDALONE_TOL`` (in bf16 with at most ``STANDALONE_BF16_DIFFER``
+    of the outputs' bits differing), and the library call to the oracle
+    of ``repro_torch.kernels.ref`` within ``LIBRARY_TOL``.  Then times the
+    kernel and the library call (CUDA events over 100 calls after 10
+    warm-up calls) and the plain version (10 calls after 2) beside the
+    bounds, and the kernel's and the library call's device time alone by
+    ``torch.profiler`` (20 calls): at small shapes the events measure the
+    host's cost of a call.  Returns the three entries of the ``kernels`` JSON line, each
+    with its full-width f32 case at the top level."""
+    import torch.nn.functional as F
+    from repro_torch import kernels as sk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import SOURCE
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    runs = []
+    for name, label, dims, kw in STANDALONE_CASES:
+        x32 = _standalone_inputs(name, dims, gen)
+        for dt in (torch.float32, torch.bfloat16):
+            runs.append((name, label, dims, kw, dt,
+                         tuple(t.to(dt) for t in x32)))
+    sk.reset_launch_counts()
+    outs = [getattr(sk, name)(*xs, **kw)
+            for name, label, dims, kw, dt, xs in runs]
+    torch.cuda.synchronize()
+    launches = sk.launch_counts()
+    for name in STANDALONE_REPLACES:
+        want = sum(1 for r in runs if r[0] == name)
+        assert launches[name] == want, (name, launches)
+    lib_calls = {
+        "matmul": lambda a, b, **kw: torch.matmul(a, b),
+        "rmsnorm": lambda x, w, **kw: F.rms_norm(x, (x.shape[1],), w, 1e-6),
+        "flash_attention": lambda q, k, v, causal=True, **kw:
+            F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal).transpose(1, 2)}
+    oracles = {"matmul": lambda a, b, **kw: ref.matmul_ref(a, b),
+               "rmsnorm": lambda x, w, **kw: ref.rmsnorm_ref(x, w),
+               "flash_attention": lambda q, k, v, causal=True, **kw:
+                   ref.flash_attention_ref(q, k, v, causal)}
+    rows = {name: [] for name in STANDALONE_REPLACES}
+    for (name, label, dims, kw, dt, xs), got in zip(runs, outs):
+        bf16 = dt == torch.bfloat16
+        rtol, atol = STANDALONE_TOL[name][bf16]
+        kernel = getattr(sk, name)
+        plain = getattr(sk, name + "_plain")
+        want = plain(*xs, **kw)
+        assert got.dtype == dt and got.shape == want.shape
+        err = _close(got, want, rtol, atol)
+        differ = float((got != want).float().mean())
+        assert not bf16 or differ <= STANDALONE_BF16_DIFFER, (name, differ)
+        library = lib_calls[name]
+        lib_err = _close(library(*xs, **kw), oracles[name](*xs, **kw),
+                         LIBRARY_TOL[name][bf16])
         for _ in range(10):
-            fn()
-        lib_ms = _events_ms(fn, 100)
-        out.append((name, shape, nbytes, flops) + _bound((nbytes, flops))
-                   + (call, lib_ms))
-    return out
+            kernel(*xs, **kw)
+        ms = _events_ms(lambda: kernel(*xs, **kw), 100)
+        for _ in range(10):
+            library(*xs, **kw)
+        lib_ms = _events_ms(lambda: library(*xs, **kw), 100)
+        for _ in range(2):
+            plain(*xs, **kw)
+        plain_ms = _events_ms(lambda: plain(*xs, **kw), 10)
+        device_ms = _device_ms(lambda: kernel(*xs, **kw), 20,
+                               STANDALONE_SYMBOLS[name])
+        lib_device_ms = _device_ms(lambda: library(*xs, **kw), 20)
+        nbytes, flops = _standalone_work(name, dims, kw, xs[0].element_size())
+        # the bound at the card's peak for the data type: bf16 on the
+        # tensor cores (the kernels' own FFMA path is beside it)
+        bound_ms, bound_by = _bound(
+            (nbytes, flops), H100_BF16_TC_FLOPS if bf16 else H100_F32_FLOPS)
+        row = {"case": label, "dims": list(dims), "dtype": str(dt)[6:],
+               **{k: v for k, v in kw.items() if k == "causal"},
+               "max_abs_err": err, "bits_differ": differ,
+               "library_max_abs_err": lib_err,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "device_ms": device_ms, "library_device_ms": lib_device_ms,
+               "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        if bf16:
+            row["bound_ffma_ms"] = _bound((nbytes, flops))[0]
+        rows[name].append(row)
+        dev = lambda t: "none" if t is None else f"{t:.6f}"
+        log(f"  {name} {label} {tuple(dims)} {row['dtype']}: kernel "
+            f"{ms:.6f} ms (device {dev(device_ms)}), plain {plain_ms:.6f} "
+            f"ms, library {lib_ms:.6f} ms (device {dev(lib_device_ms)}), "
+            f"bound {bound_ms:.6f} ms ({bound_by}"
+            + (f" at the bf16 tensor cores' peak; {row['bound_ffma_ms']:.6f}"
+               " ms at the f32 FFMA rate" if bf16 else "")
+            + f"); max |err| {err:.3g} vs plain (rtol {rtol:g}, atol "
+            f"{atol:g}), bits differ in {differ:.3g} of the outputs; "
+            f"library {lib_err:.3g} vs the oracle")
+    log(f"phase 4 ok: launches {launches}")
+    entries = []
+    for name, cases in rows.items():
+        top = next(r for r in cases
+                   if r["case"] == "full" and r["dtype"] == "float32")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": str(SOURCE.relative_to(ROOT)),
+            "replaces": STANDALONE_REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "device_ms",
+                                   "library_device_ms", "dims", "dtype")},
+            "cases": cases})
+    return entries
 
 
 def main() -> int:
@@ -1537,10 +1755,12 @@ def main() -> int:
     err2d = max(timed("phase 2d", phase_tp_workers, m, w_max, "2d")
                 for m in (dense, granite))
     kd = timed("phase 3d", phase_tp_serve, granite, w_max, "3d")
-    lib = timed("standalone bounds", standalone_bounds)
-    for row in lib:
-        log("  still to port: %s at %s: %d bytes, %d FLOP, bound %.6f ms "
-            "(%s); library yardstick %s %.6f ms" % row)
+    from repro_torch.kernels import launch_counts
+    served = launch_counts()            # the served paths launch none
+    assert not any(served.values()), served
+    standalone = timed("phase 4", phase_standalone)
+    for entry in standalone:
+        entry["served_launches"] = served[entry["name"]]
     kernel = {"name": "megakernel", "route": "cuda",
               "source": "src/repro_torch/megakernel/csrc/megakernel.cu",
               "replaces": "src/repro/kernels/megakernel/kernel.py:1175",
@@ -1556,7 +1776,7 @@ def main() -> int:
     kernel["models"] = {dense.name: k, granite.name: kb, mamba.name: kc,
                         f"{granite.name} tp=4": kd}
     log(f"chip_smoke took {time.perf_counter() - t_all:.1f} s")
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": [kernel] + standalone}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,9 @@ headers, so the build takes seconds).  The library goes into
 ``build/repro_torch/`` at the root of the checkout at first use, named
 by a hash of the source and the flags so that an edited source is never
 served a stale build.  ``nvcc`` is ``$CUDA_HOME/bin/nvcc``,
-``/usr/local/cuda/bin/nvcc`` or the one on ``PATH``.
+``/usr/local/cuda/bin/nvcc`` or the one on ``PATH``.  ``compile_source``
+builds any other source of the port the same way (the standalone
+kernels, ``repro_torch/kernels/build.py``).
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
-__all__ = ["SOURCE", "BUILD_DIR", "NVCC_FLAGS", "build_library",
-           "load_library"]
+__all__ = ["SOURCE", "BUILD_DIR", "NVCC_FLAGS", "compile_source",
+           "build_library", "load_library"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "megakernel.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -38,23 +40,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build_library() -> Tuple[Path, str]:
-    """Compile the kernel if this source and these flags have no build
-    yet; returns (library path, the compiler's output or "cached")."""
-    key = hashlib.sha1(SOURCE.read_bytes()
+def compile_source(source: Path, stem: str) -> Tuple[Path, str]:
+    """Compile ``source`` into ``BUILD_DIR/lib<stem>_<hash>.so`` if this
+    source and these flags have no build yet; returns (library path, the
+    compiler's output or "cached").  A failed compile raises with the
+    compiler's output."""
+    key = hashlib.sha1(source.read_bytes()
                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libmegakernel_{key}.so"
+    lib = BUILD_DIR / f"lib{stem}_{key}.so"
     if lib.exists():
         return lib, "cached"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
+                           str(source)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr
+
+
+def build_library() -> Tuple[Path, str]:
+    """Compile the megakernel if this source and these flags have no
+    build yet; returns (library path, the compiler's output or
+    "cached")."""
+    return compile_source(SOURCE, "megakernel")
 
 
 def load_library() -> ctypes.CDLL:

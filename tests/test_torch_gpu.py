@@ -1,9 +1,11 @@
 """On the card: the hand-written CUDA megakernel against its plain PyTorch
 version, at the reduced size (deepseek-7b reduced: GQA with 4 query heads
 over 2 KV heads; granite-moe reduced; mamba2 reduced, and mamba2's kinds
-12-13 at full width), under the static and the dynamic scheduler.  Every test
-here is marked ``gpu`` and skips without a CUDA device; the file imports
-no JAX, so it runs where JAX is absent:
+12-13 at full width), under the static and the dynamic scheduler; and the
+standalone kernels (``repro_torch.kernels``) against theirs, at the
+shapes of ``tests/test_kernels.py`` and at deepseek-7b's full width.
+Every test here is marked ``gpu`` and skips without a CUDA device; the
+file imports no JAX, so it runs where JAX is absent:
 
     pytest -m gpu tests/test_torch_*.py
 """
@@ -786,3 +788,153 @@ def test_cuda_tp2_chip_isolation(cuda):
     c0, c1 = (plan.view(ex.heap, "logits", c) for c in (0, 1))
     assert not torch.equal(c0, clean) and not torch.equal(c1, clean)
     assert torch.equal(c0, c1)
+
+
+#: the standalone kernels' cases: every shape of tests/test_kernels.py
+#: (flash attention at B=2, with its (bq, bk)), then deepseek-7b's full
+#: width (the up-projection of a B=2, 128-token prefill chunk, its
+#: rmsnorm, attention over the 4096-token context with 32 heads of 128)
+STANDALONE = [
+    ("matmul", (128, 128, 128), {}), ("matmul", (256, 384, 128), {}),
+    ("matmul", (128, 512, 256), {}), ("matmul", (384, 128, 384), {}),
+    ("matmul", (256, 4096, 11008), {}),
+    ("rmsnorm", (128, 256), {}), ("rmsnorm", (256, 512), {}),
+    ("rmsnorm", (384, 128), {}), ("rmsnorm", (256, 4096), {}),
+    ("flash_attention", (2, 128, 2, 64), {"bq": 64, "bk": 64}),
+    ("flash_attention", (2, 256, 4, 64), {"bq": 128, "bk": 64}),
+    ("flash_attention", (2, 128, 2, 128), {"bq": 64, "bk": 128}),
+    ("flash_attention", (1, 128, 2, 64),
+     {"bq": 64, "bk": 64, "causal": False}),
+    ("flash_attention", (1, 4096, 32, 128), {}),
+    ("flash_attention", (1, 4096, 32, 128), {"causal": False}),
+]
+
+#: (rtol, atol) of a kernel against its plain version, f32 then bf16.
+#: f32: tests/test_kernels.py's.  bf16: both sides compute in f32 (in
+#: other orders) and round once, so they differ by at most one bf16 ulp,
+#: 2^-7 of the value at most: rtol 8e-3, with an atol for outputs near
+#: zero.  The reference's bf16 3e-2 is about the size of a typical
+#: flash-attention output at S = 4096 and would hold nothing there.
+STANDALONE_TOL = {"matmul": ((1e-4, 1e-4), (8e-3, 1e-3)),
+                  "rmsnorm": ((1e-5, 1e-5), (8e-3, 1e-3)),
+                  "flash_attention": ((2e-5, 2e-5), (8e-3, 1e-4))}
+
+
+def _assert_standalone_close(name, got, want):
+    """``got`` within STANDALONE_TOL of ``want``; in bf16 also at most 1 %
+    (and one) of the outputs' bits differ, since a one-ulp fault (a
+    truncating store, a drift in a load) moves about half of them while
+    another f32 summation order moves only those near a rounding
+    boundary."""
+    bf16 = got.dtype == torch.bfloat16
+    rtol, atol = STANDALONE_TOL[name][bf16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    if bf16:
+        assert int((got != want).sum()) <= 1 + got.numel() // 100
+
+
+def _standalone_inputs(name, dims, dtype, seed=0):
+    """f32 normals drawn on the card (the matmul's weight scaled by
+    1/sqrt(K), as a model's), cast to ``dtype``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    if name == "matmul":
+        m, k, n = dims
+        xs = rnd(m, k), rnd(k, n) / k ** 0.5
+    elif name == "rmsnorm":
+        xs = rnd(*dims), rnd(dims[1])
+    else:
+        xs = rnd(*dims), rnd(*dims), rnd(*dims)
+    return tuple(x.to(dtype) for x in xs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,dims,kw", STANDALONE)
+def test_cuda_standalone_kernel_matches_plain_version(cuda, name, dims, kw,
+                                                      dtype):
+    """One launch of the kernel, counted once, within STANDALONE_TOL of
+    the plain version on the same inputs, in the input's type and
+    shape."""
+    from repro_torch import kernels as sk
+    xs = _standalone_inputs(name, dims, dtype)
+    sk.reset_launch_counts()
+    got = getattr(sk, name)(*xs, **kw)
+    torch.cuda.synchronize()
+    assert sk.launch_counts()[name] == 1
+    want = getattr(sk, name + "_plain")(*xs, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    _assert_standalone_close(name, got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,dims,kw", [
+    ("matmul", (100, 60, 72), {}), ("matmul", (1, 4096, 3), {}),
+    ("matmul", (130, 17, 257), {"bm": 130, "bn": 257}),
+    ("rmsnorm", (96, 40), {}), ("rmsnorm", (3, 4097), {}),
+    ("flash_attention", (1, 96, 2, 64), {}),
+    ("flash_attention", (2, 100, 3, 128), {"causal": False}),
+    ("flash_attention", (1, 1, 1, 64), {}),
+])
+def test_cuda_standalone_kernel_ragged_shapes(cuda, name, dims, kw, dtype):
+    """Shapes that are no multiple of the kernels' own tiles (the API's
+    blocks clamp to them): the masked edges of every tile agree with the
+    plain version within STANDALONE_TOL."""
+    from repro_torch import kernels as sk
+    xs = _standalone_inputs(name, dims, dtype, seed=1)
+    got = getattr(sk, name)(*xs, **kw)
+    want = getattr(sk, name + "_plain")(*xs, **kw)
+    assert torch.isfinite(got.float()).all()
+    _assert_standalone_close(name, got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_standalone_kernels_read_strides(cuda):
+    """The kernels read their inputs through strides: a transposed B, a
+    row-strided x and q, k, v as (B, H, S, hd) tensors seen as (B, S, H,
+    hd) give what the contiguous copies give, bitwise."""
+    from repro_torch import kernels as sk
+    a, b = _standalone_inputs("matmul", (256, 384, 128), torch.float32)
+    bt = b.T.contiguous().T
+    assert not bt.is_contiguous()
+    assert torch.equal(sk.matmul(a, bt), sk.matmul(a, b))
+    x, w = _standalone_inputs("rmsnorm", (128, 512), torch.bfloat16)
+    assert torch.equal(sk.rmsnorm(x[:, :256], w[:256]),
+                       sk.rmsnorm(x[:, :256].contiguous(), w[:256]))
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+               _standalone_inputs("flash_attention", (2, 256, 4, 64),
+                                  torch.float32))
+    assert not q.is_contiguous()
+    assert torch.equal(sk.flash_attention(q, k, v),
+                       sk.flash_attention(q.contiguous(), k.contiguous(),
+                                          v.contiguous()))
+
+
+@pytest.mark.gpu
+def test_cuda_standalone_limits_raise_before_launch(cuda):
+    """Bad shapes raise ValueError, an unsupported head width or element
+    type NotImplementedError, inputs on two devices ValueError; none of
+    them launches a kernel."""
+    from repro_torch import kernels as sk
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
+                                                     device="cuda")
+    sk.reset_launch_counts()
+    for bad in [lambda: sk.matmul(z(192, 64), z(64, 128)),
+                lambda: sk.matmul(z(128, 64), z(32, 128)),
+                lambda: sk.rmsnorm(z(192, 64), z(64)),
+                lambda: sk.flash_attention(*[z(1, 192, 2, 64)] * 3),
+                lambda: sk.rmsnorm(z(128, 64), torch.zeros(64))]:
+        with pytest.raises(ValueError):
+            bad()
+    for bad in [lambda: sk.flash_attention(*[z(1, 128, 2, 96)] * 3),
+                lambda: sk.flash_attention(*[z(1, 128, 2, 32)] * 3),
+                lambda: sk.matmul(z(128, 64, dt=torch.float16),
+                                  z(64, 128, dt=torch.float16)),
+                lambda: sk.rmsnorm(z(128, 64), z(64, dt=torch.bfloat16))]:
+        with pytest.raises(NotImplementedError):
+            bad()
+    torch.cuda.synchronize()
+    assert not any(sk.launch_counts().values())

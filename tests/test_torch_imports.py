@@ -21,7 +21,8 @@ bad = sorted(n for n in sys.modules
 need = ("repro_torch.runtime.dyn_sched", "repro_torch.core.runtime_sim",
         "repro_torch.models.moe", "repro_torch.models.ssm",
         "repro_torch.core.task_semantics", "repro_torch.distributed",
-        "repro_torch.distributed.comm_tasks")
+        "repro_torch.distributed.comm_tasks", "repro_torch.kernels",
+        "repro_torch.kernels.ref")
 missing = [m for m in need if m not in sys.modules]
 n = sum(1 for k in sys.modules if k.startswith("repro_torch"))
 print("BAD", bad, "MISSING", missing, "N", n)
