@@ -17,8 +17,11 @@ The megakernel Program, at W=4 under each scheduler, is held against the
 torch Program, which reads the same weights as views of the heap, within
 3e-4 at every step, for a dense model, an MoE model (at
 ``capacity_factor = n_experts``, the dropless convention: the megakernel
-never drops a token) and a Mamba2 model (the SSD state update and the
-causal conv step, kinds 12-13).  Imports no JAX.
+never drops a token), a Mamba2 model (the SSD state update and the
+causal conv step, kinds 12-13) and qwen2-vl, an embedding-input model
+with M-RoPE: each step takes one seeded (B, D) embedding row per
+request (a vision frontend's patch embeddings) in place of a token, and
+its heap holds no embedding table.  Imports no JAX.
 """
 import argparse
 import dataclasses
@@ -42,7 +45,8 @@ def main() -> None:
     args = ap.parse_args()
     device = "cpu" if args.cpu else None          # the card otherwise
     B, S = 2, 16
-    for name in ("deepseek-7b", "granite-moe-1b-a400m", "mamba2-2.7b"):
+    for name in ("deepseek-7b", "granite-moe-1b-a400m", "mamba2-2.7b",
+                 "qwen2-vl-2b"):
         cfg = get_config(name).reduced()
         if cfg.n_experts:
             cfg = dataclasses.replace(cfg,
@@ -61,16 +65,24 @@ def main() -> None:
 
             rng = np.random.default_rng(0)
             lens = np.zeros((B,), np.int32)
-            toks = rng.integers(1, cfg.vocab, size=B).astype(np.int32)
+
+            def embeds():                       # seeded (B, D) embeddings
+                return rng.standard_normal((B, cfg.d_model)) \
+                    .astype(np.float32)
+
+            toks = embeds() if cfg.embed_input \
+                else rng.integers(1, cfg.vocab, size=B).astype(np.int32)
             worst = 0.0
             for i in range(8):
                 got, want = mk.step(toks, lens), ref.step(toks, lens)
                 err = float(np.abs(got - want).max())
                 assert err < 3e-4, (cfg.name, scheduler, i, err)
                 worst = max(worst, err)
-                toks = want.argmax(axis=-1).astype(np.int32)
+                toks = embeds() if cfg.embed_input \
+                    else want.argmax(axis=-1).astype(np.int32)
                 lens += 1
-            print(f"  8 greedy decode steps: megakernel within {worst:.2e} "
+            what = "embedding" if cfg.embed_input else "greedy decode"
+            print(f"  8 {what} steps: megakernel within {worst:.2e} "
                   f"of the torch Program")
 
 

@@ -7,6 +7,13 @@ backends, with the contract of the reference's ``repro.api.Program``.
     logits = prog.step(tokens, seq_lens)        # one decode step
     logits = prog.prefill(chunk, seq_lens, chunk_lens)  # N-token chunks
 
+An embedding-input config (``cfg.embed_input``: qwen2-vl, musicgen) takes
+float embeddings in place of token ids: ``step`` (B, D), ``prefill``
+(B, N, D); its heap holds no embedding table.  ``positions`` of ``step``
+reach the megakernel (``(B, 3)`` temporal/height/width columns under
+M-RoPE; ``seq_lens`` in every column when omitted); the torch backend,
+like the reference's oracle, ignores them and uses text-mode positions.
+
 Backends:
 
 * ``"torch"``      — the torch model (``models.lm``), the decode oracle;
@@ -88,7 +95,10 @@ class Program:
     def init_state(self) -> "Program":
         raise NotImplementedError
 
-    def step(self, tokens, seq_lens, positions=None) -> np.ndarray:
+    def step(self, tokens_or_embeds, seq_lens,
+             positions=None) -> np.ndarray:
+        """One decode step: tokens (B,), or embeddings (B, D) when
+        ``cfg.embed_input``; returns logits (B, V)."""
         raise NotImplementedError
 
     def get_state(self) -> Dict[str, torch.Tensor]:
@@ -107,12 +117,23 @@ class Program:
         return torch.as_tensor(np.asarray(a), dtype=torch.long,
                                device=self.device)
 
+    def _inputs(self, tokens_or_embeds) -> torch.Tensor:
+        """Token ids as int64, or embeddings as float32 when
+        ``cfg.embed_input``, on the program's device."""
+        if self.cfg.embed_input:
+            return torch.as_tensor(np.asarray(tokens_or_embeds),
+                                   dtype=torch.float32, device=self.device)
+        return self._ints(tokens_or_embeds)
+
     # ------------------------------------------------------------ prefill
-    def prefill(self, tokens, seq_lens, chunk_lens=None) -> np.ndarray:
-        """Consume an N-token chunk per request; returns logits (B, N, V).
-        Positions >= ``chunk_lens`` are padding (no state written)."""
+    def prefill(self, tokens_or_embeds, seq_lens,
+                chunk_lens=None) -> np.ndarray:
+        """Consume an N-token chunk per request, tokens (B, N) or
+        embeddings (B, N, D) when ``cfg.embed_input``; returns logits
+        (B, N, V).  Positions >= ``chunk_lens`` are padding (no state
+        written)."""
         assert self._params is not None, "bind() before prefill()"
-        tokens = self._ints(tokens)
+        tokens = self._inputs(tokens_or_embeds)
         if chunk_lens is None:
             chunk_lens = np.full((self.batch,), tokens.shape[1], np.int64)
         with torch.no_grad():
@@ -212,12 +233,15 @@ class TorchProgram(Program):
         self._cache = {k: torch.as_tensor(v).to(self.device, torch.float32)
                        for k, v in state.items()}
 
-    def step(self, tokens, seq_lens, positions=None) -> np.ndarray:
+    def step(self, tokens_or_embeds, seq_lens,
+             positions=None) -> np.ndarray:
+        """``positions`` is ignored: the oracle uses text-mode positions
+        (``seq_lens``), as the reference's does."""
         assert self._params is not None, "bind() first"
         with torch.no_grad():
             logits, self._cache = serve_step(self._params, self.cfg,
                                              self.get_state(),
-                                             self._ints(tokens),
+                                             self._inputs(tokens_or_embeds),
                                              self._ints(seq_lens))
         self.step_count += 1
         return logits.cpu().numpy()
@@ -353,8 +377,11 @@ class MegakernelProgram(Program):
         self.executor.reset_state()
         return self
 
-    def step(self, tokens, seq_lens, positions=None) -> np.ndarray:
-        logits = self.executor.step(tokens, seq_lens, positions)
+    def step(self, tokens_or_embeds, seq_lens,
+             positions=None) -> np.ndarray:
+        """One launch; ``positions`` (B,) or, under M-RoPE, (B, 3)
+        override ``seq_lens`` as the rotary positions."""
+        logits = self.executor.step(tokens_or_embeds, seq_lens, positions)
         self.step_count += 1
         return logits.cpu().numpy()
 
@@ -390,7 +417,8 @@ def compile(cfg, batch: int, max_seq: int, backend: str = "torch", *,
     partitioner may use (one CTA each on the card), ``scheduler`` is
     "static" (the partition's per-worker streams) or "dynamic" (ready
     pools with stealing, the partition as the affinity hint) and
-    ``trace`` adds the trace ring; the torch backend ignores all three.
+    ``trace`` adds the trace ring; the torch backend ignores all three
+    (``num_workers < 1`` raises ``ValueError`` on both backends).
     ``tp`` (megakernel only) is the tensor-parallel degree: the plan is
     stamped for ``tp`` chips over the fused transport, and its ``tp *
     num_workers`` lanes must fit on the card at once."""
@@ -401,6 +429,8 @@ def compile(cfg, batch: int, max_seq: int, backend: str = "torch", *,
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if num_workers < 1:
+        raise ValueError(f"num_workers must be >= 1, got {num_workers}")
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
     if backend == "megakernel":

@@ -1,11 +1,12 @@
 """Lowering: ModelConfig → kernel-level decode-step ComputationGraph.
 
 The port's copy of ``repro/core/lowering.py`` for the dense, MoE and
-SSM families, with the TP AllReduce insertion (the hybrid, shared-expert
-and embedding-input branches are later slices and raise).  The graph's tensor
-names double as binding keys and as the port's parameter names, so
-``decode_bindings`` is the parameter dict plus the cache and the
-per-step inputs.
+SSM families and the embedding-input backbones (the ``h0`` graph input,
+and (B, 3) positions for M-RoPE), with the TP AllReduce insertion (the
+hybrid and shared-expert branches are later slices and raise).  The
+graph's tensor names double as binding keys and as the port's parameter
+names, so ``decode_bindings`` is the parameter dict plus the cache and
+the per-step inputs.
 """
 from __future__ import annotations
 
@@ -40,20 +41,28 @@ def build_decode_graph(
     b = batch
 
     # ---- graph inputs ----
-    g.add_tensor("tokens", (b,), "int32", is_input=True)
-    g.add_tensor("embed", (cfg.vocab, d), is_input=True)
+    if cfg.embed_input:
+        g.add_tensor("h0", (b, d), is_input=True)
+    else:
+        g.add_tensor("tokens", (b,), "int32", is_input=True)
+        g.add_tensor("embed", (cfg.vocab, d), is_input=True)
+    pos_shape = (b, 3) if cfg.mrope_sections is not None else (b,)
     if any(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)):
-        g.add_tensor("positions", (b,), "int32", is_input=True)
+        g.add_tensor("positions", pos_shape, "int32", is_input=True)
     g.add_tensor("seq_lens", (b,), "int32", is_input=True)
     g.add_tensor("live_lens", (b,), "int32", is_input=True)  # seq_lens + 1
 
-    g.add_tensor("h0", (b, d))
-    g.add_op(OpKind.EMBED_LOOKUP, ["tokens", "embed"], ["h0"])
+    if not cfg.embed_input:
+        g.add_tensor("h0", (b, d))
+        g.add_op(OpKind.EMBED_LOOKUP, ["tokens", "embed"], ["h0"])
     h = "h0"
     if cfg.gemma_norm:  # gemma scales embeddings by sqrt(d_model)
         g.add_tensor("h0s", (b, d))
         g.add_op(OpKind.ELEMENTWISE, [h], ["h0s"], scale=float(d) ** 0.5)
         h = "h0s"
+
+    mrope = (tuple(cfg.mrope_sections)
+             if cfg.mrope_sections is not None else None)
 
     def matmul(x: str, w: str, out: str, out_cols: int, *, bias: str = "",
                activation=None) -> str:
@@ -147,11 +156,11 @@ def build_decode_graph(
         g.add_tensor(f"{L}.qr", (b, qd))
         g.add_op(OpKind.ROPE, [q, "positions"], [f"{L}.qr"],
                  head_dim=hd, theta=cfg.rope_theta,
-                 mrope_sections=None, col_align=hd)
+                 mrope_sections=mrope, col_align=hd)
         g.add_tensor(f"{L}.kr", (b, kvd))
         g.add_op(OpKind.ROPE, [k, "positions"], [f"{L}.kr"],
                  head_dim=hd, theta=cfg.rope_theta,
-                 mrope_sections=None, col_align=hd)
+                 mrope_sections=mrope, col_align=hd)
         # KV-cache update, then attention over the updated cache
         for cname, new in ((f"{L}.k_cache", f"{L}.kr"),
                            (f"{L}.v_cache", v)):
@@ -252,22 +261,31 @@ def state_map(cfg):
 
 
 def decode_bindings(cfg, params: Mapping[str, torch.Tensor],
-                    cache: Mapping[str, torch.Tensor], tokens, seq_lens,
-                    positions=None) -> Dict[str, torch.Tensor]:
+                    cache: Mapping[str, torch.Tensor], tokens_or_embeds,
+                    seq_lens, positions=None) -> Dict[str, torch.Tensor]:
     """A tensor for every graph input of ``build_decode_graph``: the
     weights as given (graph-named), the cache leaves reshaped to the
     graph's state tensors ((B, S, KV·hd) KV caches, (B, W, C) conv
-    windows, (B, nh, hd, N) SSD states), and the per-step inputs."""
+    windows, (B, nh, hd, N) SSD states), and the per-step inputs: token
+    ids, or the (B, D) embeddings ``h0`` when ``cfg.embed_input``, and
+    the positions (``seq_lens`` unless given; 1-D positions stacked to
+    the three M-RoPE columns)."""
     check_supported(cfg)
     lens = torch.as_tensor(seq_lens, dtype=torch.int32)
     out: Dict[str, torch.Tensor] = dict(params)
     if cfg.tie_embeddings:
         out["lm_head"] = params["embed"].T
-    out["tokens"] = torch.as_tensor(tokens, dtype=torch.int32)
+    if cfg.embed_input:
+        out["h0"] = torch.as_tensor(tokens_or_embeds, dtype=torch.float32)
+    else:
+        out["tokens"] = torch.as_tensor(tokens_or_embeds, dtype=torch.int32)
     out["seq_lens"] = lens
     out["live_lens"] = lens + 1
-    out["positions"] = torch.as_tensor(
-        seq_lens if positions is None else positions, dtype=torch.int32)
+    pos = torch.as_tensor(seq_lens if positions is None else positions,
+                          dtype=torch.int32)
+    if cfg.mrope_sections is not None and pos.dim() == 1:
+        pos = torch.stack([pos] * 3, dim=-1)
+    out["positions"] = pos
     for ent in state_map(cfg):
         leaf = cache[ent["key"]][ent["blk"], ent["idx"]]
         if ent["key"] in ("k", "v"):    # (B, S, KV, hd) -> (B, S, KV·hd)

@@ -77,10 +77,12 @@ def load_library() -> ctypes.CDLL:
         P, I64 = ctypes.c_void_p, ctypes.c_longlong
         lib.mk_launch.argtypes = ([P, P] + [I64] * 11
                                   + [ctypes.c_double, I64, I64, I64, P]
-                                  + [I64] * 13 + [P, P])
+                                  + [I64] * 13 + [P, P] + [I64] * 3)
         lib.mk_launch.restype = ctypes.c_int
         lib.mk_max_workers.argtypes = [I64, I64]
         lib.mk_max_workers.restype = I64
+        lib.mk_last_statics.argtypes = [P]
+        lib.mk_last_statics.restype = None
         lib.mk_error_string.argtypes = [ctypes.c_int]
         lib.mk_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -8,7 +8,8 @@
 // signal-and-enqueue at :1063 and the dynamic trace record at :1104) and
 // the task kinds 0-13: the dense family's 0-8 (noop, matmul + bias +
 // activation, rmsnorm, rope, glu, residual/scale-add, GQA decode
-// attention, KV cache update, embedding), the MoE family's 9-11 (the
+// attention, KV cache update, embedding; rope with its M-RoPE branch,
+// `k_rope` at kernel.py:775), the MoE family's 9-11 (the
 // router's top-k softmax, `k_softmax_topk` at kernel.py:896; the expert
 // GEMM, `k_moe_gg` at :914; the weighted combine, `k_moe_combine` at
 // :947) and the SSM family's 12-13 (the Mamba2 SSD state update, `k_ssm`
@@ -230,6 +231,9 @@ struct Statics {
   // a multichip plan's (rows, 2) side table: per row the heap offset of
   // an arrival counter (-1: none) and, for a send, the count to wait for
   const long long* acks;
+  // M-RoPE (kind 3 rows with word 15 = 1): the widths of the temporal,
+  // height and width sections of the rotary half (all 0: plain RoPE)
+  long long mrope[3];
 };
 
 // Dynamic shared memory: [descriptor row | block-reduction words]
@@ -506,16 +510,23 @@ __device__ void k_rmsnorm(float* heap, const long long* d, const Statics& S,
 }
 
 // ---- kind 3: rotate-half RoPE of each head at angle pos * theta^(-i/half)
+// With word 15 = 1 (M-RoPE) the positions are a (rows, 3) tile at word 19
+// with row stride word 20, and rotary element ii takes column si, the
+// section (S.mrope) that holds ii: temporal, height or width.
 __device__ void k_rope(float* heap, const long long* d, const Statics& S) {
   const long long m = d[1];
   const long long ws = store_width(d[2], S);
   const long long hd = S.hd, half = S.hd / 2, nh = S.tn / S.hd;
+  const bool mrope = d[15] == 1;
   for (long long i = threadIdx.x; i < m * ws; i += NT) {
     const long long r = i / ws, j = i % ws, h = j / hd, e = j % hd;
     float y = 0.0f;
     if (h < nh) {
       const long long ii = e < half ? e : e - half;
-      const float pos = heap[d[19] + r * d[20]];
+      const long long si = !mrope ? 0
+                           : ii < S.mrope[0] ? 0
+                           : ii < S.mrope[0] + S.mrope[1] ? 1 : 2;
+      const float pos = heap[d[19] + r * d[20] + si];
       const float f = powf(S.theta, -static_cast<float>(ii)
                                         / static_cast<float>(half));
       const float ang = pos * f;
@@ -1456,6 +1467,9 @@ const void* kernel_for(bool dyn, long long ext) {
              : reinterpret_cast<const void*>(megakernel<false, 0>);
 }
 
+// the statics of the last mk_launch call (host side; mk_last_statics)
+Statics g_last{};
+
 }  // namespace
 
 // The most workers (CTAs) that can be resident at once for a plan with
@@ -1490,8 +1504,10 @@ extern "C" long long mk_max_workers(long long tk, long long hd) {
 // group), 2 the full one (a plan with the Mamba2 kinds), 3 the multichip
 // one (a stamped plan, static only), 0 the dense.  `hd_ssm`, `n_ssm`,
 // `nh_tile` and `w_conv` shape the Mamba2 kinds (12-13); `acks` is a
-// multichip plan's (rows, 2) side table (null otherwise).  Returns the
-// CUDA error of the launch (0 on success).
+// multichip plan's (rows, 2) side table (null otherwise).  `mrope0-2`
+// are the M-RoPE sections (0, 0, 0 without), after `stream` so that the
+// earlier arguments keep their places.  Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int mk_launch(float* heap, const long long* descs,
                          long long num_steps, long long num_workers,
                          long long tn, long long tk, long long hd,
@@ -1506,7 +1522,9 @@ extern "C" int mk_launch(float* heap, const long long* descs,
                          long long topk, long long ext,
                          long long hd_ssm, long long n_ssm,
                          long long nh_tile, long long w_conv,
-                         const long long* acks, void* stream) {
+                         const long long* acks, void* stream,
+                         long long mrope0, long long mrope1,
+                         long long mrope2) {
   const int tkc = static_cast<int>(tk < 8 ? 8 : (tk > 128 ? 128 : tk));
   const int ts = static_cast<int>(s_max < 128 ? s_max : 128);
   Statics S{tn, tk, hd, g, store_ch, stats_off, event_off, tr_off, spin_ns,
@@ -1514,7 +1532,8 @@ extern "C" int mk_launch(float* heap, const long long* descs,
             static_cast<int>((tk + tkc - 1) / tkc), ts,
             static_cast<int>((s_max + ts - 1) / ts), dyn, sched, sched_w,
             qoff, ov_words, qc_off, pt_off, ctl_off, n_tasks, topk,
-            hd_ssm, n_ssm, nh_tile, w_conv, acks};
+            hd_ssm, n_ssm, nh_tile, w_conv, acks, {mrope0, mrope1, mrope2}};
+  g_last = S;
   const size_t smem = smem_bytes(tk, hd);
   const void* kernel = kernel_for(dyn != 0, ext);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -1529,6 +1548,23 @@ extern "C" int mk_launch(float* heap, const long long* descs,
       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The integer statics of the last mk_launch call, in the order of its
+// arguments: tn, tk, hd, g, store_ch, stats_off, event_off, tr_off,
+// spin_ns, ng, dyn, sched_w, qoff, ov_words, qc_off, pt_off, ctl_off,
+// n_tasks, topk, hd_ssm, n_ssm, nh_tile, w_conv, mrope0-2 (26 words):
+// what the kernel was given, for a check that the ctypes argument list
+// matches this signature.
+extern "C" void mk_last_statics(long long* out) {
+  const Statics& S = g_last;
+  const long long v[] = {S.tn, S.tk, S.hd, S.g, S.store_ch, S.stats_off,
+                         S.event_off, S.tr_off, S.spin_ns, S.ng, S.dyn,
+                         S.sched_w, S.qoff, S.ov_words, S.qc_off, S.pt_off,
+                         S.ctl_off, S.n_tasks, S.topk, S.hd_ssm, S.n_ssm,
+                         S.nh_tile, S.w_conv, S.mrope[0], S.mrope[1],
+                         S.mrope[2]};
+  for (int i = 0; i < 26; ++i) out[i] = v[i];
 }
 
 extern "C" const char* mk_error_string(int err) {

@@ -542,6 +542,7 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
         "TN": tn, "TM": max_m, "TK": _align(max_k),
         "HD": cfg.hd, "G": cfg.q_per_kv,
         "THETA": float(cfg.rope_theta),
+        "MROPE": tuple(cfg.mrope_sections or ()),
         "HD_SSM": cfg.ssm_head_dim, "N_SSM": cfg.ssm_state,
         "W_CONV": cfg.ssm_conv, "TOPK": cfg.top_k,
         "NEG_EXP_A": True,
@@ -589,9 +590,10 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
         elif kind == OpKind.ROPE:
             x = sl(0)
             d[6], d[7] = x.elem(r0, c0), x.ld
-            d[19] = sl(1).elem(r0)
-            d[20] = 1
-            d[15] = 0                                # no M-RoPE positions
+            pos_slot, mrope = sl(1), len(g.spec(ins[1]).shape) == 2
+            d[19] = pos_slot.elem(r0, 0) if mrope else pos_slot.elem(r0)
+            d[20] = pos_slot.ld if mrope else 1
+            d[15] = int(mrope)                       # (B, 3) positions
             d[16] = c0                               # global col offset
         elif kind == OpKind.GLU_MUL:
             a, bb = sl(0), sl(1)

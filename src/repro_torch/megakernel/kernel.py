@@ -12,15 +12,15 @@ adds one to the launch count; for a heap on the CPU it runs
 ``megakernel_plain``, and on any other device it raises.  It replaces
 the Pallas megakernel of the JAX package
 (``repro/kernels/megakernel/kernel.py`` ``make_megakernel``) for both
-schedulers and the task kinds 0-15 (the dense family's, the MoE
-family's router top-k, expert GEMM and combine, the SSM family's
-Mamba2 state update and conv step, and the COMM kinds of a stamped
-multichip plan: the ring send and the all-reduce chunk), with its event
-counters and trace ring.  A multichip plan runs over the fused
-transport (its chips are regions of the one heap) under the static
-scheduler; ``acks`` is then its port-only side table
-(``desc.stamp_multichip``).  A plan that asks for the remote-copy
-transport (``REMOTE_DMA``) is refused.
+schedulers and the task kinds 0-15 (the dense family's, rope's M-RoPE
+branch included, the MoE family's router top-k, expert GEMM and
+combine, the SSM family's Mamba2 state update and conv step, and the
+COMM kinds of a stamped multichip plan: the ring send and the
+all-reduce chunk), with its event counters and trace ring.  A
+multichip plan runs over the fused transport (its chips are regions of
+the one heap) under the static scheduler; ``acks`` is then its
+port-only side table (``desc.stamp_multichip``).  A plan that asks for
+the remote-copy transport (``REMOTE_DMA``) is refused.
 
 ``megakernel_plain`` is a Python loop over the reference's grid slots,
 step-major and worker-fastest, that runs each kind with torch ops on
@@ -54,7 +54,7 @@ from .desc import (DESC_WORDS, STATS_WORDS, TRACE_HEADER, TRACE_WORDS,
 __all__ = ["megakernel", "megakernel_plain", "launch_count",
            "reset_launch_count", "check_plan", "check_workers",
            "max_workers", "MAX_TN", "MAX_HD", "MAX_TK", "MAX_EXPERTS",
-           "SPIN_TIMEOUT_S"]
+           "MAX_MROPE", "SPIN_TIMEOUT_S"]
 
 #: limits of the CUDA kernel's tiling: 512 threads × 2 float4 column
 #: groups per matmul thread (the widest matmul or expert tile; the other
@@ -64,6 +64,9 @@ __all__ = ["megakernel", "megakernel_plain", "launch_count",
 MAX_TN = 4096
 MAX_HD = 256
 MAX_TK = 26880
+
+#: M-RoPE sections the kernel takes (temporal, height, width)
+MAX_MROPE = 3
 
 #: the router top-k (kind 9) runs one warp per row with 4 expert columns
 #: a lane
@@ -121,7 +124,10 @@ def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
     outside 1..E, and expert weights (kind 10: words 8 and 19, row
     stride word 9) not addressable as float4 or expert tiles whose
     store width is not a whole number of float4 groups (a matmul tile
-    may be: the kernel finishes its last columns one at a time)."""
+    may be: the kernel finishes its last columns one at a time), and
+    M-RoPE rows (kind 3, word 15 = 1) or sections (``MROPE``) unless
+    there are at most ``MAX_MROPE`` sections, none negative, that sum
+    to HD / 2."""
     if statics.get("DYN"):
         if statics["QCAP"] != QUEUE_CAP or statics["T_TASKS"] >= 1 << 24 \
                 or statics["W"] >= MAX_DYN_WORKERS:
@@ -156,11 +162,25 @@ def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
             "SSD state tiles must be float4-addressable (N and every state, "
             "B and C offset and stride a multiple of 4), A = -exp(A_log), "
             "and every tile NH_TILE heads wide")
+    sec = tuple(statics.get("MROPE", ()))
+    rope = descs[descs[:, 0] == 3]
+    if (sec or (rope[:, 15] == 1).any()) and (
+            len(sec) > MAX_MROPE or min(sec, default=-1) < 0
+            or sum(sec) != statics["HD"] // 2):
+        raise NotImplementedError(
+            f"M-RoPE sections {sec} for head_dim {statics['HD']}")
     topk = descs[descs[:, 0] == 9]
     if len(topk) and ((topk[:, 2] > MAX_EXPERTS).any()
                       or not 1 <= statics["TOPK"] <= topk[:, 2].min()):
         raise NotImplementedError(
             f"router top-{statics['TOPK']} of {topk[:, 2].max()} experts")
+
+
+def _mrope(statics: Mapping[str, Any]):
+    """The M-RoPE sections as the kernel's three words (0 past the
+    plan's sections; all 0 for plain RoPE)."""
+    sec = tuple(statics.get("MROPE", ()))
+    return sec + (0,) * (MAX_MROPE - len(sec))
 
 
 def _variant(statics: Mapping[str, Any]) -> int:
@@ -276,7 +296,7 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
                             statics.get("NH_TILE", 0),
                             statics.get("W_CONV", 0),
                             acks.data_ptr() if acks is not None else None,
-                            stream)
+                            stream, *_mrope(statics))
     if err != 0:
         raise RuntimeError("megakernel launch failed: "
                            + lib.mk_error_string(err).decode())
@@ -596,7 +616,14 @@ def _run_task(d, tile, width, scalar, heap, TN, HD, G, half, inv_freq,
     elif code == 3:                     # rope (rotate-half, per head)
         ws = width(d[2])
         nh = TN // HD
-        pos = tile(d[19], d[20], m, 1)
+        if d[15] == 1:                  # M-RoPE: section i reads column i
+            sec = statics["MROPE"]
+            col = torch.repeat_interleave(
+                torch.arange(len(sec), device=heap.device),
+                torch.tensor(sec, device=heap.device))
+            pos = tile(d[19], d[20], m, len(sec))[:, col]
+        else:
+            pos = tile(d[19], d[20], m, 1)
         ang = pos * inv_freq[None, :]
         c, s = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
         x = tile(d[6], d[7], m, nh * HD).reshape(m, nh, HD)

@@ -10,7 +10,8 @@ live program, as the reference's executor does:
   one tensor at a time, state slots start at zero;
 * the KV cache stays in the heap across steps (the kernel updates it in
   place);
-* the per-step inputs (tokens, positions, seq_lens, live_lens) go into
+* the per-step inputs (tokens, or the embeddings ``h0`` of an
+  embedding-input config, positions, seq_lens, live_lens) go into
   the heap through one ``index_copy_`` before each launch.  The same copy
   writes zeros over the event table and the trace ring's tick counter:
   the kernel counts both up during a launch, and a launch that found its
@@ -272,17 +273,22 @@ class MegakernelExecutor:
         self.state_scatter_count += 1
 
     # ---------------------------------------------------------------- steps
-    def write_step_inputs(self, tokens, seq_lens, positions=None) -> None:
-        """Write one step's tokens, positions and lengths into the heap
-        (every chip's region), zero the event counters, the tick and a
+    def write_step_inputs(self, tokens_or_embeds, seq_lens,
+                          positions=None) -> None:
+        """Write one step's tokens (or (B, D) embeddings ``h0`` when
+        ``cfg.embed_input``), positions and lengths into the heap (every
+        chip's region), zero the event counters, the tick and a
         multichip plan's arrival counters and, under the dynamic
-        scheduler, rewrite the initial queue image and zero the
-        ticket (one ``index_copy_``)."""
+        scheduler, rewrite the initial queue image and zero the ticket
+        (one ``index_copy_``).  The positions are ``seq_lens`` unless
+        given; 1-D positions are stacked to the three M-RoPE columns."""
         lens = np.asarray(seq_lens, np.int64)
-        vals = {"tokens": np.asarray(tokens), "seq_lens": lens,
-                "live_lens": lens + 1,
-                "positions": lens if positions is None
-                else np.asarray(positions)}
+        pos = lens if positions is None else np.asarray(positions)
+        if self.cfg.mrope_sections is not None and pos.ndim == 1:
+            pos = np.stack([pos] * 3, axis=-1)
+        vals = {"seq_lens": lens, "live_lens": lens + 1, "positions": pos,
+                "h0" if self.cfg.embed_input else "tokens":
+                np.asarray(tokens_or_embeds)}
         flat = np.concatenate([np.tile(np.asarray(vals[n], np.float32)
                                        .reshape(size), self.plan.n_chips)
                                for n, size in self._entries]
@@ -297,12 +303,13 @@ class MegakernelExecutor:
         megakernel(self.heap, self._descs, self.plan.statics, self._sched,
                    self._acks)
 
-    def step(self, tokens, seq_lens, positions=None) -> torch.Tensor:
+    def step(self, tokens_or_embeds, seq_lens,
+             positions=None) -> torch.Tensor:
         """One decode step inside the kernel; returns the logits (B, V) on
         the device (chip 0's).  The cache advances in the resident
         heap."""
         assert self.heap is not None, "bind() before step()"
-        self.write_step_inputs(tokens, seq_lens, positions)
+        self.write_step_inputs(tokens_or_embeds, seq_lens, positions)
         self.launch()
         return self.plan.read_output(self.heap, "logits")
 
@@ -311,8 +318,8 @@ class MegakernelExecutor:
         """Build the heap from full bindings, run one step, return every
         graph output (one-shot semantics, for tests)."""
         self.upload(self.plan.build_heap(bindings, self.device))
-        self.step(bindings["tokens"], bindings["seq_lens"],
-                  bindings.get("positions"))
+        self.step(bindings["h0" if self.cfg.embed_input else "tokens"],
+                  bindings["seq_lens"], bindings.get("positions"))
         return {name: self.plan.read_output(self.heap, name)
                 for name in self.plan.compiled.graph.outputs}
 

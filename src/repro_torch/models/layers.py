@@ -47,13 +47,23 @@ def glu(h: torch.Tensor, activation: str = "silu") -> torch.Tensor:
 def rope(positions: torch.Tensor, head_dim: int, theta: float,
          mrope_sections: Optional[Tuple[int, int, int]] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables (..., head_dim // 2) for integer ``positions``."""
-    if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE is not ported yet")
+    """cos/sin tables (..., head_dim // 2) for integer ``positions``:
+    (...,) for plain RoPE, or (..., 3) (temporal, height, width) for
+    M-RoPE, where section i of the rotary frequencies takes column i."""
     half = head_dim // 2
     inv_freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                        device=positions.device) / half)
-    ang = positions.float()[..., None] * inv_freq
+    if mrope_sections is None:
+        ang = positions.float()[..., None] * inv_freq
+    else:
+        assert positions.shape[-1] == len(mrope_sections)
+        parts, start = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(positions[..., i:i + 1].float()
+                         * inv_freq[start:start + sec])
+            start += sec
+        assert start == half, "mrope sections must cover head_dim//2"
+        ang = torch.cat(parts, dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 

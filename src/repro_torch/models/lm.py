@@ -3,14 +3,17 @@ prefill path.
 
 It mirrors ``repro/models/lm.py`` (the reference) for the dense family
 (attention + gated MLP in every layer), the MoE family (attention + a
-routed-expert FFN, ``models/moe.py``) and the SSM family (a Mamba2
-mixer and no FFN in every layer, ``models/ssm.py``, one group of B and
-C).  The hybrid and embedding-input families, M-RoPE and shared experts
+routed-expert FFN, ``models/moe.py``), the SSM family (a Mamba2 mixer
+and no FFN in every layer, ``models/ssm.py``, one group of B and C) and
+the embedding-input backbones of the dense family (``embed_input``:
+float embeddings in place of token ids and no embedding table; M-RoPE
+where the config has sections).  The hybrid family and shared experts
 are later slices and raise ``NotImplementedError``.
 
 Parameters are a flat dict keyed by the decode graph's tensor names
-(``embed``, ``L0.wq``, ``L0.wi_gate``, ``L0.router_w`` or
-``L0.zproj``, ..., ``final_ln_w``, ``lm_head``; see
+(``embed`` unless the config takes embeddings, ``L0.wq``,
+``L0.wi_gate``, ``L0.router_w`` or ``L0.zproj``, ..., ``final_ln_w``,
+``lm_head``; see
 ``core/lowering.py``), so a megakernel heap slot and a model weight are
 the same tensor: the torch model can run on strided views of the heap.
 ``params_from_jax`` turns the reference's stacked parameter tree (as
@@ -61,10 +64,8 @@ def block_structure(cfg) -> Dict[str, Any]:
 def check_supported(cfg) -> None:
     """Raise for configurations outside the ported slices: attention and
     a gated MLP or routed experts (no shared ones) in every layer, or a
-    Mamba2 mixer with one group of B and C and no FFN in every layer."""
-    if cfg.embed_input or cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: embedding inputs and M-RoPE are not ported yet")
+    Mamba2 mixer with one group of B and C and no FFN in every layer.
+    Token or embedding inputs, RoPE or M-RoPE."""
     layers = {(cfg.layer_kind(i), cfg.ffn_kind(i))
               for i in range(cfg.n_layers)}
     if not (layers <= {("attn", "mlp"), ("attn", "moe")}
@@ -95,8 +96,11 @@ def param_specs(cfg) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:
     d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
     e, fe = cfg.n_experts, (cfg.moe_d_ff or cfg.d_ff)
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    specs: Dict[str, Tuple[Tuple[int, ...], Optional[float]]] = {
-        "embed": ((cfg.vocab, d), 0.02)}
+    specs: Dict[str, Tuple[Tuple[int, ...], Optional[float]]] = {}
+    if not cfg.embed_input:
+        specs["embed"] = ((cfg.vocab, d), 0.02)
+    elif cfg.tie_embeddings:
+        raise ValueError("tied embeddings require an embedding table")
     for i in range(cfg.n_layers):
         L = f"L{i}"
         specs[f"{L}.ln_w"] = ((d,), None)
@@ -194,7 +198,9 @@ def params_from_jax(np_tree, cfg, device=None) -> Dict[str, torch.Tensor]:
     st = block_structure(cfg)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     blocks = np_tree["blocks"]
-    out = {"embed": t(np_tree["embed"]), "final_ln_w": t(np_tree["final_ln"])}
+    out = {"final_ln_w": t(np_tree["final_ln"])}
+    if not cfg.embed_input:
+        out["embed"] = t(np_tree["embed"])
     if not cfg.tie_embeddings:
         out["lm_head"] = t(np_tree["lm_head"])
     for i in range(cfg.n_layers):
@@ -323,21 +329,26 @@ def _ssm_chunk(h, params, L, states, cfg, valid):
 
 
 def prefill_chunk(params: Mapping[str, torch.Tensor], cfg,
-                  cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                  seq_lens: torch.Tensor,
+                  cache: Dict[str, torch.Tensor],
+                  tokens_or_embeds: torch.Tensor, seq_lens: torch.Tensor,
                   chunk_lens: Optional[torch.Tensor] = None):
     """Consume N prompt tokens per request in one step.
 
-    tokens (B, N) integer; seq_lens (B,) = live length *before* the chunk
-    (token i lands at position seq_lens + i); chunk_lens (B,) = valid
-    tokens per request (default N).  Positions >= chunk_lens are padding:
+    tokens (B, N) integer, or embeds (B, N, D) float when
+    ``cfg.embed_input``; seq_lens (B,) = live length *before* the chunk
+    (token i lands at position seq_lens + i, the same position in all
+    three M-RoPE columns: text mode, as the reference); chunk_lens (B,) =
+    valid tokens per request (default N).  Positions >= chunk_lens are padding:
     they write no cache or SSM state and their logits are garbage (the
     experts of an MoE layer route them too, so they take expert
     capacity, as in the reference).  Returns
     (logits (B, N, V) float32, cache), the cache updated in place."""
     check_supported(cfg)
     st = block_structure(cfg)
-    h = params["embed"][tokens.long()]
+    if cfg.embed_input:
+        h = tokens_or_embeds.float()
+    else:
+        h = params["embed"][tokens_or_embeds.long()]
     b, n = h.shape[:2]
     seq_lens = seq_lens.long()
     if chunk_lens is None:
@@ -348,7 +359,9 @@ def prefill_chunk(params: Mapping[str, torch.Tensor], cfg,
         h = h * math.sqrt(cfg.d_model)
     if st["attn_pos"]:
         pos = seq_lens[:, None] + torch.arange(n, device=h.device)[None, :]
-        cos, sin = rope(pos, cfg.hd, cfg.rope_theta)
+        if cfg.mrope_sections is not None:
+            pos = torch.stack([pos] * 3, dim=-1)     # text-mode M-RoPE
+        cos, sin = rope(pos, cfg.hd, cfg.rope_theta, cfg.mrope_sections)
     for i in range(cfg.n_layers):
         L = f"L{i}"
         blk, at = divmod(i, st["period"])
@@ -369,10 +382,11 @@ def prefill_chunk(params: Mapping[str, torch.Tensor], cfg,
     return (h @ head).float(), cache
 
 
-def serve_step(params, cfg, cache, tokens: torch.Tensor,
+def serve_step(params, cfg, cache, tokens_or_embeds: torch.Tensor,
                seq_lens: torch.Tensor):
     """One decode step: ``prefill_chunk`` with a width-1 chunk.  tokens
-    (B,); returns (logits (B, V) float32, cache)."""
-    logits, cache = prefill_chunk(params, cfg, cache, tokens[:, None],
-                                  seq_lens)
+    (B,), or embeds (B, D) when ``cfg.embed_input``; returns (logits
+    (B, V) float32, cache)."""
+    logits, cache = prefill_chunk(params, cfg, cache,
+                                  tokens_or_embeds[:, None], seq_lens)
     return logits[:, 0], cache

@@ -1,7 +1,9 @@
 """On the card: the hand-written CUDA megakernel against its plain PyTorch
 version, at the reduced size (deepseek-7b reduced: GQA with 4 query heads
 over 2 KV heads; granite-moe reduced; mamba2 reduced, and mamba2's kinds
-12-13 at full width), under the static and the dynamic scheduler; and the
+12-13 at full width; qwen2-vl and musicgen reduced, and at full width
+their ``h0`` step and kind 3 with M-RoPE on distinct (t, h, w)
+positions), under the static and the dynamic scheduler; and the
 standalone kernels (``repro_torch.kernels``) against theirs, at the
 shapes of ``tests/test_kernels.py`` and at deepseek-7b's full width.
 Every test here is marked ``gpu`` and skips without a CUDA device; the
@@ -663,6 +665,131 @@ def _check_conv_windows(plan, heap, plain):
                                plan.view(h, src)), win
         assert torch.equal(plan.view(heap, win)[:, :-1],
                            plan.view(plain, win)[:, :-1]), win
+
+
+# ---------------------------------------------------------------------------
+# Embedding inputs (the h0 input) and M-RoPE in kind 3.
+# ---------------------------------------------------------------------------
+
+#: distinct (t, h, w) positions, two patches of a 2-D image grid
+GRID_POS = np.array([[2, 5, 9], [2, 11, 3]])
+
+
+def _embed_cfg(arch, layers, full):
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg if full else cfg.reduced(),
+                               n_layers=layers)
+
+
+def _embed_inputs(cfg, plan, cuda, seed=3):
+    """A heap image with random weights, qkv biases and cache, and the
+    step's (B, D) embeddings and positions: distinct (t, h, w) columns
+    under M-RoPE, else the lengths."""
+    base = _base_heap(plan, cfg, cuda, seed)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    for name in plan.input_classes()["weights"]:
+        if name.split(".")[-1] in ("bq", "bk", "bv"):
+            plan.view(base, name).normal_(0.0, 0.1, generator=gen)
+    x = np.random.default_rng(seed).standard_normal((B, cfg.d_model)) \
+        .astype(np.float32)
+    pos = GRID_POS if cfg.mrope_sections is not None else None
+    return base, x, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-large"])
+def test_cuda_embed_step_and_rope_match_plain_version(cuda, arch):
+    """Two layers at full width (qwen2-vl: M-RoPE sections (16, 24, 24)
+    of hd 128, 6 query heads per KV head, qkv bias; musicgen: 32 heads
+    of 64, GELU), one step from an ``h0`` input: the logits within 2e-4
+    of the plain version, ``h0`` and the cache-update copies bitwise.
+    Then kind 3 alone (every other row a noop) on the step's q and k:
+    the rotated rows within 2e-4 of the plain version's; under M-RoPE
+    with distinct (t, h, w) positions, which text-mode positions do not
+    reproduce."""
+    cfg = _embed_cfg(arch, 2, full=True)
+    plan = compile_decode_megakernel(cfg, B, S)
+    assert plan.statics["MROPE"] == tuple(cfg.mrope_sections or ())
+    base, x, pos = _embed_inputs(cfg, plan, cuda)
+    ex = MegakernelExecutor(plan, cfg, cuda)
+    ex.upload(base)
+    ex.write_step_inputs(x, [1, 12], pos)
+    plain = ex.heap.clone()
+    reset_launch_count()
+    ex.launch()
+    torch.cuda.synchronize()
+    assert launch_count() == 1
+    megakernel_plain(plain, plan.descs, plan.statics)
+    torch.testing.assert_close(plan.view(ex.heap, "logits"),
+                               plan.view(plain, "logits"), rtol=2e-4,
+                               atol=2e-4)
+    assert torch.equal(plan.view(ex.heap, "h0"),
+                       torch.from_numpy(x).to(cuda))
+    _check_cache_updates(plan, ex.heap, plain, [1, 12])
+    assert all(c["event_wait_violations"] == 0
+               for c in ex.worker_counters())
+
+    table = plan.descs.copy()
+    table[table[:, 0] != 3, 0] = 0
+    outs = [f"L{i}.{t}r" for i in range(2) for t in "qk"]
+    image = ex.heap.clone()             # the step's q and k in place
+    got = {}
+    for p in (pos, None) if pos is not None else (None,):
+        ex.upload(image.clone())
+        ex.write_step_inputs(x, [1, 12], p)
+        plain = ex.heap.clone()
+        megakernel(ex.heap, torch.from_numpy(table).to(cuda), plan.statics)
+        torch.cuda.synchronize()
+        megakernel_plain(plain, table, plan.statics)
+        for n in outs:
+            torch.testing.assert_close(plan.view(ex.heap, n),
+                                       plan.view(plain, n), rtol=2e-4,
+                                       atol=2e-4)
+        got[p is None] = plan.view(ex.heap, outs[0]).clone()
+    if pos is not None:                 # the sections read their columns
+        assert not torch.equal(got[False], got[True])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-large"])
+def test_cuda_h0_step_bitwise_across_workers_and_schedulers(cuda, arch):
+    """Two reduced layers, one heap image, an ``h0`` step (qwen2-vl with
+    distinct (t, h, w) positions): the static and the dynamic kernel at
+    W ∈ {1, 2, 4, W_max} give bitwise-equal logits and caches, within
+    2e-4 of the plain version; pools drained, 0 violations."""
+    cfg = _embed_cfg(arch, 2, full=False)
+    w_max = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = []
+    for w in (1, 2, 4, w_max):
+        p = compile_decode_megakernel(cfg, B, S, num_workers=w)
+        plans += [p, lower_tgraph(p.compiled, cfg, scheduler="dynamic")]
+    base, x, pos = _embed_inputs(cfg, max(plans, key=lambda p: p.heap_size),
+                                 cuda)
+    names = ["logits"] + plans[0].input_classes()["state"]
+    want = None
+    for plan in plans:
+        run = MegakernelExecutor(plan, cfg, cuda)
+        run.upload(base.clone())
+        run.write_step_inputs(x, [1, 12], pos)
+        plain = run.heap.clone()
+        run.launch()
+        torch.cuda.synchronize()
+        got = {n: plan.view(run.heap, n).clone() for n in names}
+        want = want or got
+        for n in names:
+            assert torch.equal(got[n], want[n]), (plan.num_workers, n)
+        if plan.dynamic:
+            _check_dynamic(run)
+        else:
+            assert all(c["event_wait_violations"] == 0
+                       for c in run.worker_counters())
+        if plan.num_workers == 1:
+            megakernel_plain(plain, plan.descs, plan.statics,
+                             plan.dyn.sched_table() if plan.dynamic
+                             else None)
+            torch.testing.assert_close(plan.view(run.heap, "logits"),
+                                       plan.view(plain, "logits"),
+                                       rtol=2e-4, atol=2e-4)
 
 
 # ---------------------------------------------------------------------------

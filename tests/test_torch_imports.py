@@ -54,9 +54,11 @@ def test_compile_without_device_needs_a_card():
 
 def test_later_slices_raise():
     """The MoE and SSM families are ported: granite and mamba2 compile
-    with both backends.  The hybrid family (jamba) and M-RoPE (qwen2-vl)
-    are later slices and raise.  W > 1 workers are ported and compile to
-    a W-worker plan with event counters."""
+    with both backends, and so do the embedding-input backbones
+    (qwen2-vl with M-RoPE, musicgen): an ``h0`` input and no embedding
+    kind.  The hybrid family (jamba) is a later slice and raises.  W > 1
+    workers are ported and compile to a W-worker plan with event
+    counters."""
     from repro_torch.api import compile
     from repro_torch.configs import get_config
     moe = get_config("granite-moe-1b-a400m").reduced()
@@ -67,16 +69,37 @@ def test_later_slices_raise():
     assert compile(ssm, 1, 8, device="cpu").backend == "torch"
     prog = compile(ssm, 1, 8, backend="megakernel", device="cpu")
     assert {12, 13} <= set(prog.plan.descs[:, 0].tolist())
-    for name in ("jamba-1.5-large-398b", "qwen2-vl-2b"):
-        later = get_config(name).reduced()
-        for backend in ("torch", "megakernel"):
-            with pytest.raises(NotImplementedError):
-                compile(later, 1, 8, backend=backend, device="cpu")
+    for name in ("qwen2-vl-2b", "musicgen-large"):
+        emb = get_config(name).reduced()
+        assert compile(emb, 1, 8, device="cpu").backend == "torch"
+        prog = compile(emb, 1, 8, backend="megakernel", device="cpu")
+        assert "h0" in prog.plan.input_classes()["per_step"]
+        assert 8 not in set(prog.plan.descs[:, 0].tolist())
+        assert prog.plan.statics["MROPE"] == tuple(emb.mrope_sections or ())
+    later = get_config("jamba-1.5-large-398b").reduced()
+    for backend in ("torch", "megakernel"):
+        with pytest.raises(NotImplementedError):
+            compile(later, 1, 8, backend=backend, device="cpu")
     dense = dataclasses.replace(get_config("deepseek-7b").reduced(),
                                 n_layers=1)
     prog = compile(dense, 1, 8, backend="megakernel", device="cpu",
                    num_workers=2)
     assert prog.plan.num_workers == 2 and prog.plan.num_events > 0
+
+
+@pytest.mark.parametrize("backend", ["torch", "megakernel"])
+@pytest.mark.parametrize("workers", [0, -1])
+def test_compile_refuses_fewer_than_one_worker(backend, workers):
+    """``num_workers < 1`` raises ``ValueError`` on every backend, with
+    the reference's message, before anything is compiled."""
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("deepseek-7b").reduced(),
+                              n_layers=1)
+    with pytest.raises(ValueError,
+                       match=f"num_workers must be >= 1, got {workers}"):
+        compile(cfg, 2, 16, backend=backend, device="cpu",
+                num_workers=workers)
 
 
 def test_later_lowerings_raise():

@@ -43,6 +43,8 @@ def _bindings(cfg, np_tree, device="cpu"):
     jcache = {k: rng.standard_normal(v.shape).astype(np.float32) * 0.5
               for k, v in jcache.items()}
     toks = np.array([3, 7], np.int32)
+    if cfg.embed_input:                 # the (B, D) embeddings h0
+        toks = rng.standard_normal((B, cfg.d_model)).astype(np.float32)
     lens = np.array([1, 4], np.int32)
     ref = ref_decode_bindings(cfg, np_tree, jcache, toks, lens)
     tcache = {k: torch.from_numpy(v).to(device) for k, v in jcache.items()}
@@ -55,6 +57,8 @@ def _bindings(cfg, np_tree, device="cpu"):
     ("deepseek-7b", 1), ("deepseek-7b", 2),
     ("gemma-7b", 1),         # √d scale-add, (1 + w) norm, GeGLU, tied head
     ("qwen1.5-110b", 1),     # QKV bias
+    ("qwen2-vl-2b", 1),      # h0 input, (B, 3) positions, M-RoPE, bias
+    ("musicgen-large", 1),   # h0 input, GeGLU
 ])
 def test_lowering_matches_reference(arch, layers):
     """Same config → the same descriptor table (int32 → int64), the same
@@ -66,7 +70,8 @@ def test_lowering_matches_reference(arch, layers):
     assert np.array_equal(port.descs, ref.descs.astype(np.int64))
     assert port.heap_size == ref.heap_size
     assert port.stats_offset == ref.stats_offset
-    for k in ("TN", "TM", "TK", "HD", "G", "STORE_CH", "NG", "S_MAX"):
+    for k in ("TN", "TM", "TK", "HD", "G", "STORE_CH", "NG", "S_MAX",
+              "MROPE"):
         assert port.statics[k] == ref.statics[k], k
     assert {n: (s.offset, s.ld, s.shape) for n, s in port.layout.items()} \
         == {n: (s.offset, s.ld, s.shape) for n, s in ref.layout.items()}
@@ -76,11 +81,15 @@ def test_lowering_matches_reference(arch, layers):
     assert np.array_equal(port_heap.view(np.int32), ref_heap.view(np.int32))
 
 
-@pytest.mark.parametrize("arch,layers", [("deepseek-7b", 2), ("gemma-7b", 1)])
+@pytest.mark.parametrize("arch,layers", [
+    ("deepseek-7b", 2), ("gemma-7b", 1),
+    ("qwen2-vl-2b", 2), ("musicgen-large", 1),   # seeded embeddings
+])
 def test_plain_megakernel_matches_jax_serve_step(arch, layers):
     """Eight decode steps through the megakernel Program (plain version
     on the CPU heap) against JAX ``serve_step``: logits within 3e-4, the
-    reference's megakernel-vs-oracle tolerance."""
+    reference's megakernel-vs-oracle tolerance.  An embedding-input
+    config takes a seeded (B, D) embedding row per step."""
     cfg, np_tree = _setup(layers, arch=arch)
     prog = torch_compile(cfg, B, S, backend="megakernel", device="cpu")
     prog.bind(params_from_jax(np_tree, cfg, device="cpu")).init_state()
@@ -89,14 +98,19 @@ def test_plain_megakernel_matches_jax_serve_step(arch, layers):
     jstep = jax.jit(jax_serve_step, static_argnums=1)
     rng = np.random.default_rng(0)
     lens = np.array([0, 3], np.int32)
-    toks = rng.integers(1, cfg.vocab, size=B).astype(np.int32)
+    def embeds():
+        return rng.standard_normal((B, cfg.d_model)).astype(np.float32)
+
+    toks = embeds() if cfg.embed_input \
+        else rng.integers(1, cfg.vocab, size=B).astype(np.int32)
     for i in range(8):
         got = prog.step(toks, lens)
         ref, jcache = jstep(jp, cfg, jcache, jnp.asarray(toks),
                             jnp.asarray(lens))
         np.testing.assert_allclose(got, np.asarray(ref), rtol=3e-4,
                                    atol=3e-4, err_msg=f"step {i}")
-        toks = np.asarray(ref).argmax(-1).astype(np.int32)
+        toks = embeds() if cfg.embed_input \
+            else np.asarray(ref).argmax(-1).astype(np.int32)
         lens += 1
     state = prog.get_state()
     for key in ("k", "v"):

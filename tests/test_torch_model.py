@@ -27,9 +27,19 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def _setup(arch, layers, seed=0):
+    """The reference's weights, as JAX arrays and as the port's dict; qkv
+    biases (which the reference initialises to zero) redrawn so that a
+    dropped bias shows."""
     cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=layers)
     jp = jax_init_params(cfg, jax.random.PRNGKey(seed), dtype=jnp.float32)
     np_tree = jax.tree.map(np.asarray, jp)
+    attn = np_tree["blocks"].get("attn", {})
+    rng = np.random.default_rng(seed)
+    for nm in ("bq", "bk", "bv"):
+        if nm in attn:
+            attn[nm] = (rng.standard_normal(attn[nm].shape) * 0.1) \
+                .astype(np.float32)
+    jp = jax.tree.map(jnp.asarray, np_tree)
     return cfg, jp, params_from_jax(np_tree, cfg, device="cpu")
 
 
@@ -43,16 +53,25 @@ def _assert_cache(jcache, tcache):
                                    **TOL)
 
 
-@pytest.mark.parametrize("arch,layers", [("deepseek-7b", 2), ("gemma-7b", 1)])
+@pytest.mark.parametrize("arch,layers", [
+    ("deepseek-7b", 2), ("gemma-7b", 1),
+    ("qwen2-vl-2b", 2),      # embedding input, M-RoPE, qkv bias
+    ("musicgen-large", 1),   # embedding input, GELU
+])
 def test_greedy_decode_and_chunked_prefill_match_jax(arch, layers):
     """One 16-token chunked prefill (ragged chunk lengths), then an
-    8-step greedy decode loop: logits and caches at every step."""
+    8-step greedy decode loop: logits and caches at every step.  An
+    embedding-input config takes seeded embeddings for the chunk and for
+    each step in place of tokens."""
     cfg, jp, tp = _setup(arch, layers)
     b, s = 2, 32
     jcache = jax_init_cache(cfg, b, s, dtype=jnp.float32)
     tcache = init_cache(cfg, b, s, device="cpu")
     rng = np.random.default_rng(1)
-    chunk = rng.integers(1, cfg.vocab, size=(b, 16)).astype(np.int32)
+    if cfg.embed_input:
+        chunk = rng.standard_normal((b, 16, cfg.d_model)).astype(np.float32)
+    else:
+        chunk = rng.integers(1, cfg.vocab, size=(b, 16)).astype(np.int32)
     lens = np.zeros((b,), np.int32)
     clens = np.array([16, 11], np.int32)
 
@@ -67,8 +86,13 @@ def test_greedy_decode_and_chunked_prefill_match_jax(arch, layers):
                                    np.asarray(jl)[r, :clens[r]], **TOL)
     _assert_cache(jcache, tcache)
 
+    def next_input(last_logits):        # greedy token, or an embedding
+        if cfg.embed_input:
+            return rng.standard_normal((b, cfg.d_model)).astype(np.float32)
+        return last_logits.argmax(-1).astype(np.int32)
+
     lens = clens.copy()
-    toks = np.asarray(jl)[np.arange(b), clens - 1].argmax(-1).astype(np.int32)
+    toks = next_input(np.asarray(jl)[np.arange(b), clens - 1])
     jstep = jax.jit(jax_serve_step, static_argnums=1)
     for step in range(8):
         jl, jcache = jstep(jp, cfg, jcache, jnp.asarray(toks),
@@ -78,7 +102,7 @@ def test_greedy_decode_and_chunked_prefill_match_jax(arch, layers):
         np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL,
                                    err_msg=f"step {step}")
         _assert_cache(jcache, tcache)
-        toks = np.asarray(jl).argmax(-1).astype(np.int32)
+        toks = next_input(np.asarray(jl))
         lens += 1
 
 
