@@ -11,7 +11,9 @@ for that many workers, and the partitioner picks the width it uses.
 1. prints the card's name and power limit, then builds the CUDA
    megakernel from ``src/repro_torch/megakernel/csrc`` and the standalone
    kernels from ``src/repro_torch/kernels/csrc`` for sm_90a (two nvcc
-   processes at once) and prints their registers and spills, then reads
+   processes at once) and prints their registers and spills, checks the
+   standalone SASS (``cuobjdump -sass``: HGMMA and UTMALDG in every bf16
+   kernel, neither HGMMA nor HMMA in an f32 one), then reads
    back the statics one launch gave the kernel (``mk_last_statics``: the
    M-RoPE sections at the end of ``mk_launch``'s arguments); a W
    larger than the CTAs the card holds at once is refused before launch,
@@ -113,15 +115,18 @@ for that many workers, and the partitioner picks the width it uses.
    kinds 14-15 timed together;
 4. the standalone kernels (``repro_torch.kernels``: matmul, rmsnorm and
    flash attention, hand-written CUDA built beside the megakernel in
-   phase 1) at the largest f32 shapes of ``tests/test_kernels.py`` (and
-   its non-causal case) and at deepseek-7b's full width, f32 and bf16:
+   phase 1; bf16 on the tensor cores, f32 on FFMA) at the largest f32
+   shapes of ``tests/test_kernels.py`` (and its non-causal case), at
+   deepseek-7b's full width, attention at gemma-7b's head width of 256
+   and at the padded widths 32 and 96, f32 and bf16:
    each launched through its entry point and held to its plain version
    (f32 at the reference's tolerances, bf16 to one ulp with at most 1 %
    of the outputs' bits differing), each library call
    (``torch.matmul``, ``F.rms_norm``, ``F.scaled_dot_product_attention``)
    to the oracle at the reference's tolerances, then each timed beside
    its plain version, the library call and its bounds (bf16 at the
-   tensor cores' peak).  Then one JSON line on the kernels (launches on the main
+   tensor cores' peak), with the host's share of a call (events less the
+   device time).  Then one JSON line on the kernels (launches on the main
    paths, the largest error against the plain version over all, times,
    the bounds) and the device line last.
    Every phase prints its wall time.
@@ -130,6 +135,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -167,15 +173,18 @@ def _events_ms(fn, n):
 
 def _device_ms(fn, n, key=None):
     """Mean device milliseconds per call of ``fn`` over ``n`` calls, by
-    ``torch.profiler``: the CUDA kernels whose name holds ``key`` (all of
-    them when None); None if the profiler saw no device time."""
+    ``torch.profiler``: the CUDA kernels whose name holds ``key`` (or one
+    of the tuple ``key``; all of them when None); None if the profiler saw
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
+    keys = (key,) if isinstance(key, str) else key
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
     total = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_time_total > 0 and (key is None or key in e.key))
+                if e.device_time_total > 0
+                and (keys is None or any(k in e.key for k in keys)))
     return total / n / 1e3 if total else None
 
 
@@ -205,6 +214,7 @@ def phase_build():
     log(f"phase 1 ok: built {path.name} and {spath.name} in "
         f"{time.perf_counter() - t0:.1f} s")
     _log_standalone_ptxas(sout)
+    _check_standalone_sass(spath)
     names = {"ILb0ELi0E": "static", "ILb1ELi0E": "dynamic",
              "ILb0ELi1E": "static extended", "ILb1ELi1E": "dynamic extended",
              "ILb0ELi2E": "static full", "ILb1ELi2E": "dynamic full",
@@ -1691,7 +1701,10 @@ def phase_tp_serve(cfg, w_max, tag):
 #: float32 shapes of tests/test_kernels.py (PERF.md's table) and its
 #: non-causal case, (b) deepseek-7b at full width: the up-projection of a
 #: B=2, 128-token prefill chunk, its rmsnorm, and causal attention over
-#: deepseek-llm-7b's 4096-token context (32 heads of 128)
+#: deepseek-llm-7b's 4096-token context (32 heads of 128), (c) attention
+#: at gemma-7b's head width (16 heads of 256, configs/gemma_7b.py) over
+#: the same context, and at the widths the kernel pads (32, every
+#: reduced config's; 96)
 STANDALONE_CASES = (
     ("matmul", "test", (384, 128, 384), {}),
     ("matmul", "full", (256, 4096, 11008), {}),
@@ -1701,6 +1714,10 @@ STANDALONE_CASES = (
     ("flash_attention", "test non-causal", (1, 128, 2, 64),
      {"bq": 64, "bk": 64, "causal": False}),
     ("flash_attention", "full", (1, 4096, 32, 128), {}),
+    ("flash_attention", "full hd=256", (1, 4096, 16, 256), {}),
+    ("flash_attention", "hd=32", (2, 512, 8, 32), {}),
+    ("flash_attention", "hd=96 non-causal", (2, 384, 4, 96),
+     {"causal": False}),
 )
 
 #: (rtol, atol) of a kernel against its plain version, f32 then bf16.
@@ -1729,9 +1746,25 @@ STANDALONE_BF16_DIFFER = 0.01
 LIBRARY_TOL = {"matmul": (1e-4, 2e-2), "rmsnorm": (1e-5, 3e-2),
                "flash_attention": (2e-5, 3e-2)}
 
-#: the kernels' symbols, for the profiler
-STANDALONE_SYMBOLS = {"matmul": "matmul_kernel", "rmsnorm": "rmsnorm_kernel",
+#: the kernels' symbols, for the profiler (each prefixes its kernels':
+#: matmul_kernel_wgmma<BN> and matmul_kernel_ffma, flash_kernel_wgmma<HD>
+#: and flash_kernel_ffma<HD>)
+STANDALONE_SYMBOLS = {"matmul": ("matmul_kernel", "matmul_reduce_kernel"),
+                      "rmsnorm": "rmsnorm_kernel",
                       "flash_attention": "flash_kernel"}
+
+#: ptxas and SASS labels of the library's kernels, by symbol; the bf16
+#: kernels must hold HGMMA and UTMALDG (wgmma fed by TMA), the f32 ones
+#: neither HGMMA nor HMMA (no TF32)
+STANDALONE_KERNELS = (("matmul_kernel_wgmma", "matmul bf16 wgmma", "bf16"),
+                      ("matmul_kernel_ffma", "matmul f32 ffma", "f32"),
+                      ("matmul_reduce_kernel", "matmul f32 split-K sum",
+                       None),
+                      ("flash_kernel_wgmma", "flash_attention bf16 wgmma",
+                       "bf16"),
+                      ("flash_kernel_ffma", "flash_attention f32 ffma",
+                       "f32"),
+                      ("rmsnorm_kernel", "rmsnorm", None))
 
 STANDALONE_REPLACES = {"matmul": "src/repro/kernels/matmul.py:48",
                        "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
@@ -1740,16 +1773,19 @@ STANDALONE_REPLACES = {"matmul": "src/repro/kernels/matmul.py:48",
 
 
 def _standalone_label(line):
-    """"matmul f32", "flash_attention bf16 hd=128", ... for a ptxas line
-    that names one of the standalone kernels, else None."""
-    for name, sym in STANDALONE_SYMBOLS.items():
+    """"matmul bf16 wgmma BN=192", "flash_attention f32 ffma HD=256",
+    "rmsnorm bf16", ... for a ptxas or cuobjdump line that names one of
+    the standalone kernels, else None."""
+    for sym, label, _kind in STANDALONE_KERNELS:
         if sym in line:
             rest = line.split(sym, 1)[1]
-            label = name + (" bf16" if rest.startswith("I13__nv_bfloat16")
-                            else " f32")
-            for hd in ("64", "128"):
-                if f"Li{hd}E" in rest:
-                    label += f" hd={hd}"
+            if sym == "rmsnorm_kernel":
+                label += (" bf16" if rest.startswith("I13__nv_bfloat16")
+                          else " f32")
+            width = re.match(r"ILi(\d+)E", rest)
+            if width:
+                label += (" BN=" if sym.startswith("matmul") else " HD=") \
+                    + width.group(1)
             return label
     return None
 
@@ -1757,10 +1793,44 @@ def _standalone_label(line):
 def _log_standalone_ptxas(out):
     which = None
     for line in out.splitlines():
-        if "Compiling" in line or "Function properties" in line:
+        if "C7512" in line:     # wgmma serialised for want of registers
+            log(f"  nvcc, {_standalone_label(line)}:", line.strip()[:120])
+        elif "Compiling" in line or "Function properties" in line:
             which = _standalone_label(line)
         elif which and ("registers" in line or "spill" in line):
             log(f"  nvcc, {which}:", line.strip())
+
+
+def _check_standalone_sass(lib):
+    """Phase 1: the SASS of each bf16 kernel holds HGMMA and UTMALDG, of
+    each f32 kernel neither HGMMA nor HMMA (``cuobjdump -sass`` of the
+    built library); says so when the toolkit has no cuobjdump."""
+    from repro_torch.megakernel.build import _nvcc
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        log(f"  SASS: not checked ({tool} is missing)")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, kind, label = {}, None, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            label = _standalone_label(line)
+            kind = next((k for sym, _l, k in STANDALONE_KERNELS
+                         if sym in line), None)
+            counts[label] = (kind, {op: 0 for op in ("HGMMA", "UTMALDG",
+                                                     "HMMA")})
+        elif label is not None:
+            for op in counts[label][1]:
+                counts[label][1][op] += op + "." in line or op + " " in line
+    for label, (kind, n) in sorted(counts.items(), key=lambda kv: str(kv)):
+        log(f"  SASS, {label}: HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}, "
+            f"HMMA {n['HMMA']}")
+        if kind == "bf16":
+            assert n["HGMMA"] and n["UTMALDG"], (label, n)
+        elif kind == "f32":
+            assert not n["HGMMA"] and not n["HMMA"], (label, n)
+    assert {k for k, _n in counts.values()} >= {"bf16", "f32"}, counts
 
 
 def _standalone_inputs(name, dims, gen):
@@ -1774,6 +1844,18 @@ def _standalone_inputs(name, dims, gen):
         rows, d = dims
         return rnd(rows, d), rnd(d)
     return rnd(*dims), rnd(*dims), rnd(*dims)
+
+
+def _standalone_launches(name, dims, dtype):
+    """CUDA kernels one call launches: 2 for an f32 matmul whose K the
+    plan splits (the GEMM, then the sum of its partial tiles), else 1."""
+    if name != "matmul" or dtype != torch.float32:
+        return 1
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.matmul import plan
+    m, k, n = dims
+    return 1 if plan(m, n, k, 0, sm_count(torch.device("cuda")))[1] == 1 \
+        else 2
 
 
 def _standalone_work(name, dims, kw, itemsize):
@@ -1796,7 +1878,8 @@ def phase_standalone():
     entry point a user calls, on phase 1's build of the library.
     Launches each kernel at every case of
     ``STANDALONE_CASES`` in f32 and bf16 (the path: launch counts reset
-    just before and read just after, each kernel launched once a case)
+    just before and read just after: each call launches its kernel once,
+    a split f32 matmul its GEMM and the sum of its partials)
     and holds each output to its plain version within
     ``STANDALONE_TOL`` (in bf16 with at most ``STANDALONE_BF16_DIFFER``
     of the outputs' bits differing), and the library call to the oracle
@@ -1824,7 +1907,8 @@ def phase_standalone():
     torch.cuda.synchronize()
     launches = sk.launch_counts()
     for name in STANDALONE_REPLACES:
-        want = sum(1 for r in runs if r[0] == name)
+        want = sum(_standalone_launches(r[0], r[2], r[4]) for r in runs
+                   if r[0] == name)
         assert launches[name] == want, (name, launches)
     lib_calls = {
         "matmul": lambda a, b, **kw: torch.matmul(a, b),
@@ -1874,6 +1958,7 @@ def phase_standalone():
                "library_max_abs_err": lib_err,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "device_ms": device_ms, "library_device_ms": lib_device_ms,
+               "host_ms": None if device_ms is None else ms - device_ms,
                "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
                "bound_by": bound_by}
         if bf16:
@@ -1881,7 +1966,8 @@ def phase_standalone():
         rows[name].append(row)
         dev = lambda t: "none" if t is None else f"{t:.6f}"
         log(f"  {name} {label} {tuple(dims)} {row['dtype']}: kernel "
-            f"{ms:.6f} ms (device {dev(device_ms)}), plain {plain_ms:.6f} "
+            f"{ms:.6f} ms (device {dev(device_ms)}, host share "
+            f"{dev(row['host_ms'])}), plain {plain_ms:.6f} "
             f"ms, library {lib_ms:.6f} ms (device {dev(lib_device_ms)}), "
             f"bound {bound_ms:.6f} ms ({bound_by}"
             + (f" at the bf16 tensor cores' peak; {row['bound_ffma_ms']:.6f}"

@@ -5,18 +5,21 @@
 ``build/repro_torch/libstandalone_<hash>.so`` at the first launch, never
 at import.  ``launch`` calls one of its C entry points on the current
 stream of the tensors' card, raises the CUDA error code it returns, and
-adds one to that kernel's launch count.
+adds the number of CUDA kernels it launched to that kernel's launch count.  The entry points are bound once;
+the library caches the tensor maps it encodes.  ``tma_ready`` gives the
+kernels operands they can copy by TMA or 16-byte ``cp.async``.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 __all__ = ["SOURCE", "build_library", "load_library", "placement",
-           "dtype_code", "launch", "launch_counts", "reset_launch_counts"]
+           "dtype_code", "tma_ready", "sm_count", "launch", "launch_counts",
+           "reset_launch_counts"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "standalone.cu"
 
@@ -24,6 +27,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "standalone.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB: Optional[ctypes.CDLL] = None
+_ENTRY: Dict[str, Callable[..., int]] = {}  # name -> bound C entry point
+_SMS: Dict[int, int] = {}                   # device index -> SM count
 _LAUNCHES: Dict[str, int] = {"matmul": 0, "rmsnorm": 0,
                              "flash_attention": 0}
 
@@ -42,7 +47,7 @@ def load_library() -> ctypes.CDLL:
         path, _log = build_library()
         lib = ctypes.CDLL(str(path))
         P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.sk_matmul.argtypes = [P, P, P] + [I64] * 7 + [I32, P]
+        lib.sk_matmul.argtypes = [P] * 4 + [I64] * 7 + [I32] * 4 + [P]
         lib.sk_rmsnorm.argtypes = ([P, P, P] + [I64] * 5
                                    + [ctypes.c_float, I32, P])
         lib.sk_flash_attention.argtypes = ([P] * 4 + [I64] * 16
@@ -51,6 +56,7 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.sk_error_string.argtypes = [ctypes.c_int]
         lib.sk_error_string.restype = ctypes.c_char_p
+        _ENTRY.update((n, getattr(lib, "sk_" + n)) for n in _LAUNCHES)
         _LIB = lib
     return _LIB
 
@@ -77,17 +83,50 @@ def dtype_code(*tensors: torch.Tensor) -> int:
     return _DTYPES[dt]
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Launch ``sk_<name>(*args, stream)`` on ``device``'s current stream;
-    a launch the card refuses raises and is not counted."""
-    lib = load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "sk_" + name)(*args, stream)
+def tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernels can copy it as it lies (a unit inner stride,
+    every other stride a positive multiple of 16 bytes, a 16-byte-aligned
+    start), else a copy that can: the same values in a buffer whose rows
+    are padded to 16 bytes.  The kernels read only the logical extent, so
+    the padding is never read."""
+    unit = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s > 0 and s % unit == 0 for s in t.stride()[:-1])):
+        return t
+    inner = t.shape[-1]
+    buf = t.new_empty((*t.shape[:-1], -(-inner // unit) * unit))
+    return buf.narrow(-1, 0, inner).copy_(t)
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's number of SMs (cached per device)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def launch(name: str, device: torch.device, *args,
+           kernels: int = 1) -> None:
+    """Call ``sk_<name>(*args, stream)`` on ``device``'s current stream and
+    count the ``kernels`` CUDA kernels it launches there; a launch the card
+    refuses raises and is not counted."""
+    fn = _ENTRY.get(name)
+    if fn is None:
+        load_library()
+        fn = _ENTRY[name]
+    cur = torch.cuda.current_device()
+    idx = cur if device.index is None else device.index
+    if idx == cur:          # no device switch around the call
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
-                           + lib.sk_error_string(err).decode())
-    _LAUNCHES[name] += 1
+                           + _LIB.sk_error_string(err).decode())
+    _LAUNCHES[name] += kernels
 
 
 def launch_counts() -> Dict[str, int]:

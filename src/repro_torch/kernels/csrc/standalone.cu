@@ -1,42 +1,76 @@
-// The standalone kernels of the port: a tiled GEMM, a row RMSNorm and a
+// The standalone kernels of the port: a GEMM, a row RMSNorm and a
 // FlashAttention forward, each for float32 and bfloat16 inputs, written by
 // hand for Hopper (sm_90a) and bound to PyTorch through a plain C interface
 // (repro_torch/kernels/build.py loads it with ctypes).  Every entry point
 // launches on the caller's stream, allocates nothing, and returns the
-// cudaGetLastError() code of its launch; the wrapper raises it.
+// cudaGetLastError() code of its launch, or SK_ENCODE_ERROR plus the
+// CUresult of a tensor map the driver refused; the wrapper raises it.
 //
 // Replaces the Pallas kernels of the JAX package:
 //   sk_matmul          repro/kernels/matmul.py `matmul` (pallas_call :48)
 //   sk_rmsnorm         repro/kernels/rmsnorm.py `rmsnorm` (pallas_call :27)
 //   sk_flash_attention repro/kernels/flash_attention.py `flash_attention`
 //                      (pallas_call :77)
-// Each computes in float32 and stores in the input's type, as the
-// reference does.  No tensor cores: float32 is not rounded to TF32, and
-// bfloat16 operands are widened to float32 as they are loaded, so every
-// product and sum is an f32 FFMA (the f32 tolerances of the reference's
-// tests, 1e-4 at K = 512 and 2e-5 for attention, leave no room for TF32).
-// No fast math: expf, rsqrtf and true division.
+// Each computes in float32 and stores in the input's type, rounding to
+// nearest even, as the reference does.  No fast math: expf, rsqrtf and true
+// division; only the bf16 attention takes exp2f of logits in log2 units,
+// whose 2-ulp error lies far below a bf16 output's rounding.
 //
-// Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 FFMA):
-//   matmul: operations for any shape worth a launch (2MNK FLOPs against
-//     (MK + KN + MN) elements); the design is the classic register-tiled
-//     SGEMM: a 128 x 128 output tile per CTA of 256 threads, each thread
-//     an 8 x 8 tile of f32 accumulators, K walked in slabs of 16 staged in
-//     shared memory (A transposed), the next slab's global loads issued
-//     into registers before the current slab's FFMAs.
+// bfloat16 runs on the tensor cores: wgmma.mma_async (bf16 x bf16 products,
+// exact in f32, f32 accumulators) on tiles that TMA copies into shared
+// memory with the 128-byte swizzle, in rings of stages guarded by
+// full/empty mbarriers; one producer thread (a warpgroup whose registers
+// setmaxnreg lowers) issues the copies, two consumer warpgroups of 64 rows
+// each issue the wgmmas.  float32 runs on FFMA: no TF32, whose 10-bit
+// mantissa the f32 tolerances of the reference's tests (1e-4 at K = 512,
+// 2e-5 for attention) leave no room for; its tiles arrive by 16-byte
+// cp.async so that the next copy runs under the current FFMAs.
+//
+// Bounds on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 tensor cores, 67
+// TFLOP/s f32 FFMA):
+//   matmul bf16: bytes at deepseek-7b's (256, 4096) x (4096, 11008), where B
+//     is 92 % of them: a persistent grid of min(tiles, SMs) CTAs walks
+//     128 x BN output tiles (BN in {128, 192}, picked by the wrapper
+//     so that the tiles fill the SMs in the fewest waves), the two M halves
+//     of a B tile on neighbouring CTAs so that L2 serves the second read;
+//     K in slabs of 64 through a 5-6 stage ring.
+//   matmul f32: operations; the register-tiled SGEMM: a 128 x 128 tile per
+//     CTA of 256 threads (one CTA an SM: two would cap the registers at 128
+//     and spill), an 8 x 8 register tile per thread, K in slabs of 32
+//     through a 4-stage cp.async ring with one barrier a slab.  When the
+//     tiles would leave SMs idle, K is split (the wrapper picks the count)
+//     and a second kernel sums the f32 partial tiles in split order: no
+//     atomics, so two launches agree bit for bit.
 //   rmsnorm: bytes (a handful of FLOPs per element); one CTA per row, the
 //     sum of squares reduced by warp shuffles and shared memory.
 //   flash attention: operations at the model's widths (4 S^2 H hd FLOPs,
-//     half of it under the causal mask, against 4 S H hd elements); one CTA
-//     per (batch x head, 64-query block), keys in tiles of 64: S = Q K^T
-//     and O += P V are 4 x 4 and 4 x (hd / 16) register tiles per thread
-//     read from shared memory as float4s (Q and K transposed so that both
-//     operands of S are float4 loads), the online softmax's row max and sum
-//     by shuffles within the 16 lanes that share a row.  The heaviest
-//     (last) query blocks are launched first.
+//     half of it under the causal mask, against 4 S H hd elements).  Head
+//     widths up to 256: the kernels are built at HD in {64, 128, 256} and
+//     read hd <= HD columns, the rest zero (zero columns change no entry of
+//     q k^T; the output drops them).  Key tiles wholly above the diagonal
+//     are skipped and the heaviest (last) query blocks launch first.
+//     bf16 (FA3-like): one CTA per (batch x head, 128-query block); Q once
+//     by TMA, K and V tiles (a 4-D tensor map over the (B, S, H, hd)
+//     strides) of BK = 8192 / HD keys (the most the consumers' registers
+//     hold: HD / 2 accumulators of O, BK / 2 logits, BK / 4 words each of
+//     P hi and lo) through a 4-stage ring; S = Q K^T by wgmma, scaled in
+//     f32 after the product; the online softmax in registers; P split into
+//     bf16 hi = bf16(P) and lo = bf16(P - hi), O += hi V + lo V by two
+//     register-A wgmmas (a bf16 P alone moves ~40 % of the outputs' bits
+//     against the f32 algorithm, the split ~0.2 %).
+//     f32: one CTA of 256 threads per (batch x head, 128-query block); each
+//     thread holds 8 query rows: 8 x BK/16 logits and 8 x HD/16 outputs; K
+//     and V tiles by cp.async, each copy under the other's math (K of the
+//     next tile under this tile's softmax and P V, V under Q K^T).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <mutex>
 
 namespace {
 
@@ -57,93 +91,600 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// matmul: c (M, N) = a (M, K) @ b (K, N), f32 accumulators, any strides.
+// Hopper building blocks: mbarriers, TMA, cp.async, wgmma (inline PTX).
 // ---------------------------------------------------------------------------
 
-constexpr int MM_BM = 128, MM_BN = 128, MM_BK = 16, MM_THREADS = 256;
-constexpr int MM_APAD = 4;  // As rows padded: 132 words keep float4 reads
-                            // aligned and the transposed stores 2-way
+// a wait longer than this is a fault (a copy that never lands): the
+// kernel traps, and the launch fails, rather than hang the card
+constexpr unsigned long long SK_DEADLINE_NS = 5000000000ull;
 
-// one slab's global loads into registers: A's slab is 128 rows of 16, a
-// thread takes column ak = tid % 16 of rows am + 16 i (am = tid / 16); B's
-// slab is 16 rows of 128, a thread takes column bn = tid % 128 of rows
-// bk + 2 i (bk = tid / 128), so a warp reads 128 contiguous bytes of B
-template <typename T>
-__device__ __forceinline__ void mm_fetch(
-    const T* __restrict__ a, const T* __restrict__ b, float (&ra)[8],
-    float (&rb)[8], long long M, long long N, long long K, long long sam,
-    long long sak, long long sbk, long long sbn, long long m0, long long n0,
-    long long k0, int ak, int am, int bn, int bk) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{.reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+      " selp.u32 %0, 1, 0, p;}"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try(a, parity)) return;
+  const unsigned long long t0 = globaltimer();
+  while (!mbar_try(a, parity))
+    if (globaltimer() - t0 > SK_DEADLINE_NS) __trap();
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 16 bytes global -> shared, the last 16 - bytes of them zero
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses to wgmma registers across the
+// asynchronous instructions that own them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + am + 16 * i, k = k0 + ak;
-    ra[i] = (m < M && k < K) ? to_f32(a[m * sam + k * sak]) : 0.f;
-    const long long kb = k0 + bk + 2 * i, n = n0 + bn;
-    rb[i] = (kb < K && n < N) ? to_f32(b[kb * sbk + n * sbn]) : 0.f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// shared-memory matrix descriptor of a tile in the 128-byte swizzle that
+// TMA's CU_TENSOR_MAP_SWIZZLE_128B writes (rows of 128 bytes, repeating
+// every 8 rows; tiles start on 1024-byte boundaries).  K-major: the rows
+// are the M or N index, sbo = 1024 (the next 8 rows), lbo unused (16).
+// MN-major: the rows are the K index, 64 M/N elements wide; sbo = 1024 (the
+// next 8 K rows), lbo = the bytes between 64-wide column blocks.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16: D (64 x N) in registers as
+// the m64nN accumulator layout (thread t of the warpgroup: rows
+// 16 (t / 32) + (t % 32) / 4 + {0, 8}, columns 8 j + 2 (t % 4) + {0, 1});
+// B from shared memory (TB = 0 K-major, 1 MN-major); A from shared memory
+// (K-major) or from registers (the m16n8k16 A fragment of the warp's 16
+// rows).  scale_d = 0 overwrites D.
+#define SK_D8(i)                                                           \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define SK_D32(i) SK_D8(i), SK_D8(i + 8), SK_D8(i + 16), SK_D8(i + 24)
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
+      "}, %16, %17, p, 1, 1, 0, %19;}\n"
+      : SK_D8(0), SK_D8(8)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, %32, %33, p, 1, 1, 0, %35;}\n"
+      : SK_D32(0)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, %64, %65, p, 1, 1, 0, %67;}\n"
+      : SK_D32(0), SK_D32(32)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n192(float (&d)[96], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95"
+      "}, %96, %97, p, 1, 1, 0, %99;}\n"
+      : SK_D32(0), SK_D32(32), SK_D32(64)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1, %38;}\n"
+      : SK_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, {%64,%65,%66,%67}, %68, p, 1, 1, %70;}\n"
+      : SK_D32(0), SK_D32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,"
+      "%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127"
+      "}, {%128,%129,%130,%131}, %132, p, 1, 1, %134;}\n"
+      : SK_D32(0), SK_D32(32), SK_D32(64), SK_D32(96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (N == 32)
+    wgmma_ss_n32<TB>(d, a, b, scale_d);
+  else if constexpr (N == 64)
+    wgmma_ss_n64<TB>(d, a, b, scale_d);
+  else if constexpr (N == 128)
+    wgmma_ss_n128<TB>(d, a, b, scale_d);
+  else
+    wgmma_ss_n192<TB>(d, a, b, scale_d);
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  if constexpr (N == 64)
+    wgmma_rs_n64<TB>(d, a, b, scale_d);
+  else if constexpr (N == 128)
+    wgmma_rs_n128<TB>(d, a, b, scale_d);
+  else
+    wgmma_rs_n256<TB>(d, a, b, scale_d);
+}
+
+// dynamic shared memory rounded up to the 1024 bytes the swizzle needs
+__device__ __forceinline__ uint8_t* smem_1024(uint8_t* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((1024 - (a & 1023)) & 1023);
+}
+
+// the 384 threads of a TMA/wgmma kernel: warpgroup 0 produces (its thread 0
+// issues every copy), warpgroups 1 and 2 consume, 64 rows each
+constexpr int WG_THREADS = 384, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
+// ---------------------------------------------------------------------------
+// matmul bf16: c (M, N) = a (M, K) @ b (K, N) on the tensor cores.  a is
+// read K-major and b MN-major (each with a unit inner stride; the wrapper
+// copies any other layout), both by TMA from the maps the entry point
+// encodes; c is contiguous.
+// ---------------------------------------------------------------------------
+
+template <int BN>
+struct MmCfg {
+  static constexpr int BM = 128, BK = 64;
+  static constexpr int A_BYTES = BM * BK * 2;  // [128 rows][64 k], 16 KB
+  static constexpr int B_BLOCK = BK * 64 * 2;  // [64 k][64 n], 8 KB
+  static constexpr int STAGE = A_BYTES + (BN / 64) * B_BLOCK;
+  static constexpr int STAGES = BN == 192 ? 5 : 6;
+  static constexpr int SMEM = STAGES * STAGE + 1024 + 2 * STAGES * 8;
+};
+
+template <int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    matmul_kernel_wgmma(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_b,
+                        __nv_bfloat16* __restrict__ c, int M, int N, int K) {
+  using C = MmCfg<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE);
+  uint64_t* empty = full + C::STAGES;
+  const int mt = (M + C::BM - 1) / C::BM, nt = (N + BN - 1) / BN;
+  const int tiles = mt * nt, kbs = (K + C::BK - 1) / C::BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      // tiles in M-fastest order: the M halves of one B tile run on
+      // neighbouring CTAs at the same time
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % mt) * C::BM, n0 = (tile / mt) * BN;
+        for (int kb = 0; kb < kbs; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* st = smem + stage * C::STAGE;
+          mbar_expect_tx(&full[stage], C::STAGE);
+          tma_load_2d(st, &map_a, &full[stage], kb * C::BK, m0);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_2d(st + C::A_BYTES + j * C::B_BLOCK, &map_b,
+                        &full[stage], n0 + j * 64, kb * C::BK);
+          if (++stage == C::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = wg - 1, warp = (threadIdx.x / 32) % 4,
+              lane = threadIdx.x % 32;
+    float acc[BN / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % mt) * C::BM, n0 = (tile / mt) * BN;
+      int held = -1;  // the stage the wgmmas in flight read
+      for (int kb = 0; kb < kbs; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* st = smem + stage * C::STAGE;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < C::BK / 16; ++k)
+          wgmma_ss<BN, 1>(
+              acc, smem_desc(st + cw * 64 * 128 + k * 32, 16, 1024),
+              smem_desc(st + C::A_BYTES + k * 16 * 128, C::B_BLOCK, 1024),
+              kb > 0 || k > 0);
+        wgmma_commit();
+        // one group stays in flight: the one before it is done, so its
+        // stage goes back to the producer
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        held = stage;
+        if (++stage == C::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+      // the tile's rows of this thread: r and r + 8, columns 8 j + 2 (lane
+      // % 4) + {0, 1}; pairs stored as one bf16x2 where both fit
+      const int r = m0 + cw * 64 + warp * 16 + lane / 4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = r + 8 * h;
+        if (row >= M) continue;
+        __nv_bfloat16* out = c + row * N;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = n0 + j * 8 + 2 * (lane % 4);
+          const float v0 = acc[j * 4 + 2 * h], v1 = acc[j * 4 + 2 * h + 1];
+          if (col + 1 < N && (N % 2) == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(out + col) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (col < N) out[col] = __float2bfloat16(v0);
+            if (col + 1 < N) out[col + 1] = __float2bfloat16(v1);
+          }
+        }
+      }
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(MM_THREADS, 2)
-    matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                  T* __restrict__ c, long long M, long long N, long long K,
-                  long long sam, long long sak, long long sbk,
-                  long long sbn) {
-  __shared__ __align__(16) float As[MM_BK][MM_BM + MM_APAD];  // [k][m]
-  __shared__ __align__(16) float Bs[MM_BK][MM_BN];            // [k][n]
+// ---------------------------------------------------------------------------
+// matmul f32: c (M, N) = a (M, K) @ b (K, N) on FFMA; a and b with a unit
+// inner stride and rows on 16-byte boundaries (the wrapper copies any other
+// layout).  A grid of (M tiles) x (splits) x (N tiles) CTAs, M fastest;
+// split z sums its contiguous range of K slabs into out + z M N.
+// ---------------------------------------------------------------------------
+
+constexpr int MF_BM = 128, MF_BN = 128, MF_BK = 32, MF_STAGES = 4,
+              MF_THREADS = 256;
+constexpr int MF_ALD = MF_BK + 4;  // A rows padded: a warp's two rows of one
+                                   // float4 read fall in other banks
+constexpr int MF_A = MF_BM * MF_ALD, MF_B = MF_BK * MF_BN;  // floats
+constexpr size_t MF_SMEM = sizeof(float) * MF_STAGES * (MF_A + MF_B);
+
+// a thread's copies of one slab: A's rows r + 32 i (r = tid / 8) at column
+// chunk tid % 8, B's rows r' + 8 i (r' = tid / 32) at column chunk tid % 32
+// (i < 4), each 16 bytes, zero past M, N and K.  The row pointers and the
+// M and N masks are the thread's own for the whole kernel.
+struct MfLoader {
+  const float* a;  // a + (m0 + r) sam + column
+  const float* b;  // b + r' sbk + n0 + column
+  long long a_step, ak, bn_left;
+  int a_rows, a_off, b_off, kr;  // rows of A in range; smem offsets
+
+  __device__ __forceinline__ MfLoader(const float* __restrict__ a0,
+                                      const float* __restrict__ b0,
+                                      long long M, long long N, long long sam,
+                                      long long sbk, long long m0,
+                                      long long n0) {
+    const int tid = threadIdx.x;
+    const int ar = tid >> 3, ac = (tid & 7) * 4;
+    const int br = tid >> 5, bc = (tid & 31) * 4;
+    a = a0 + (m0 + ar) * sam + ac;
+    b = b0 + br * sbk + n0 + bc;
+    a_step = 32 * sam;
+    ak = ac;
+    const long long rows_left = M - m0 - ar;  // rows ar + 32 i < M
+    a_rows = rows_left <= 0 ? 0 : (int)min(4LL, (rows_left + 31) / 32);
+    bn_left = N - n0 - bc;
+    a_off = ar * MF_ALD + ac;
+    b_off = br * MF_BN + bc;
+    kr = br;
+  }
+
+  __device__ __forceinline__ void load(float* As, float* Bs, long long K,
+                                       long long k0, long long sbk) const {
+    const long long k = k0 + ak;
+    const int abytes = k < K ? (int)min(16LL, 4 * (K - k)) : 0;
+    const int bbytes = bn_left > 0 ? (int)min(16LL, 4 * bn_left) : 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool ain = i < a_rows && abytes > 0;
+      cp_async16(As + a_off + i * 32 * MF_ALD,
+                 ain ? a + i * a_step + k0 : a, ain ? abytes : 0);
+      const bool bin = k0 + kr + 8 * i < K && bbytes > 0;
+      cp_async16(Bs + b_off + i * 8 * MF_BN,
+                 bin ? b + (k0 + 8 * i) * sbk : b, bin ? bbytes : 0);
+    }
+  }
+};
+
+__global__ void __launch_bounds__(MF_THREADS, 1)
+    matmul_kernel_ffma(const float* __restrict__ a,
+                       const float* __restrict__ b, float* __restrict__ out,
+                       long long M, long long N, long long K, long long sam,
+                       long long sbk, int splits) {
+  extern __shared__ __align__(16) float mf_smem[];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long m0 = (long long)blockIdx.y * MM_BM;
-  const long long n0 = (long long)blockIdx.x * MM_BN;
-  const int ak = tid & 15, am = tid >> 4;
-  const int bn = tid & 127, bk = tid >> 7;
-  float ra[8], rb[8];
+  const long long mt = (M + MF_BM - 1) / MF_BM;
+  long long u = blockIdx.x;
+  const long long m0 = (u % mt) * MF_BM;
+  u /= mt;
+  const int split = (int)(u % splits);
+  const long long n0 = (u / splits) * MF_BN;
+  const long long slabs = (K + MF_BK - 1) / MF_BK;
+  const long long s0 = slabs * split / splits;
+  const int n_slabs = (int)(slabs * (split + 1) / splits - s0);
+  out += split * M * N;
+
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  mm_fetch(a, b, ra, rb, M, N, K, sam, sak, sbk, sbn, m0, n0, 0, ak, am, bn,
-           bk);
-  for (long long k0 = 0; k0 < K; k0 += MM_BK) {
+  const MfLoader ld(a, b, M, N, sam, sbk, m0, n0);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      As[ak][am + 16 * i] = ra[i];
-      Bs[bk + 2 * i][bn] = rb[i];
+  for (int s = 0; s < MF_STAGES - 1; ++s) {
+    if (s < n_slabs) {
+      float* As = mf_smem + s * (MF_A + MF_B);
+      ld.load(As, As + MF_A, K, (s0 + s) * MF_BK, sbk);
     }
-    __syncthreads();
-    if (k0 + MM_BK < K)  // in flight under the FFMAs
-      mm_fetch(a, b, ra, rb, M, N, K, sam, sak, sbk, sbn, m0, n0, k0 + MM_BK,
-               ak, am, bn, bk);
-#pragma unroll
-    for (int kk = 0; kk < MM_BK; ++kk) {
-      // a thread's rows are ty*4 + {0..3} and 64 + ty*4 + {0..3}, its
-      // columns tx*4 + {0..3} and 64 + tx*4 + {0..3}: each quarter warp
-      // reads 128 contiguous bytes, so no bank conflict
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    cp_async_commit();
   }
+  for (int t = 0; t < n_slabs; ++t) {
+    cp_async_wait<MF_STAGES - 2>();
+    __syncthreads();  // slab t landed; every thread is done with slab t - 1
+    const int nx = t + MF_STAGES - 1;
+    if (nx < n_slabs) {  // into slab t - 1's stage, under slab t's FFMAs
+      float* As = mf_smem + (nx % MF_STAGES) * (MF_A + MF_B);
+      ld.load(As, As + MF_A, K, (s0 + nx) * MF_BK, sbk);
+    }
+    cp_async_commit();
+    const float* As = mf_smem + (t % MF_STAGES) * (MF_A + MF_B);
+    const float* Bs = As + MF_A;
+    // a thread's rows are ty*4 + {0..3} and 64 + ty*4 + {0..3}, its columns
+    // tx*4 + {0..3} and 64 + tx*4 + {0..3}
+#pragma unroll
+    for (int kk = 0; kk < MF_BK; kk += 4) {
+      float av[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+        const float4 v =
+            *reinterpret_cast<const float4*>(As + row * MF_ALD + kk);
+        av[i][0] = v.x;
+        av[i][1] = v.y;
+        av[i][2] = v.z;
+        av[i][3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 b0 =
+            *reinterpret_cast<const float4*>(Bs + (kk + q) * MF_BN + tx * 4);
+        const float4 b1 = *reinterpret_cast<const float4*>(
+            Bs + (kk + q) * MF_BN + 64 + tx * 4);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(av[i][q], bv[j], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    const long long m = m0 + (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
     if (m >= M) continue;
+    float* row = out + m * N;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const long long n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < N) c[m * N + n] = from_f32<T>(acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const long long n = n0 + h * 64 + tx * 4;
+      if (n + 3 < N && (N % 4) == 0) {
+        *reinterpret_cast<float4*>(row + n) =
+            make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2],
+                        acc[i][h * 4 + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < N) row[n + j] = acc[i][h * 4 + j];
+      }
     }
+  }
+}
+
+// c = sum over z of ws[z] (each M N), in the order z = 0, 1, ...
+__global__ void matmul_reduce_kernel(const float* __restrict__ ws,
+                                     float* __restrict__ c, long long mn,
+                                     int splits) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < mn;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = ws[i];
+    for (int z = 1; z < splits; ++z) s += ws[z * mn + i];
+    c[i] = s;
   }
 }
 
@@ -183,106 +724,355 @@ __global__ void __launch_bounds__(RMS_THREADS)
     yr[i] = from_f32<T>(to_f32(xr[i * sx1]) * r * to_f32(w[i * sw]));
 }
 
+
 // ---------------------------------------------------------------------------
-// flash attention: o (B, S, H, HD) = softmax(q k^T / sqrt(HD)) v per (b, h),
-// causal or not, q/k/v read through their (B, S, H, HD) strides.
+// flash attention: o (B, S, H, hd) = softmax(q k^T / sqrt(hd)) v per (b, h),
+// causal or not, with the reference's masking: -1e30 above the diagonal,
+// -inf past S, the running max from -1e30, the row sum clamped at 1e-30.
+// The kernels are built at HD in {64, 128, 256} and take hd <= HD.
 // ---------------------------------------------------------------------------
 
-constexpr int FA_BQ = 64, FA_BK = 64, FA_THREADS = 256;
+// the last key a query block sees, and so its number of key tiles
+__device__ __forceinline__ int fa_tiles(long long q0, int bq, int bk,
+                                        long long S, int causal) {
+  const long long last = causal && q0 + bq < S ? q0 + bq - 1 : S - 1;
+  return (int)(last / bk + 1);
+}
 
 template <int HD>
-constexpr size_t fa_smem_bytes() {
-  // Qt [HD][BQ], Kt [HD][BK], Vs [BK][HD], Ps [BQ][BK], all f32
-  return sizeof(float) * (HD * FA_BQ + HD * FA_BK + FA_BK * HD + FA_BQ * FA_BK);
+struct FaCfg {  // bf16, tensor cores
+  // key tiles as wide as the registers allow: a consumer thread holds
+  // HD / 2 accumulators of O, BK / 2 logits and BK / 4 words of P hi and lo
+  static constexpr int BQ = 128, BK = 8192 / HD, CH = HD / 64;
+  static constexpr int Q_BYTES = BQ * HD * 2;   // CH blocks of [128][64]
+  static constexpr int KV_BYTES = BK * HD * 2;  // CH blocks of [BK][64]
+  static constexpr int STAGES = 4;
+  static constexpr int SMEM =
+      Q_BYTES + 2 * STAGES * KV_BYTES + 1024 + (1 + 3 * STAGES) * 8;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       __nv_bfloat16* __restrict__ o, int H, int S, int hd,
+                       int causal, float scale) {
+  using C = FaCfg<HD>;
+  constexpr int BQ = C::BQ, BK = C::BK, CH = C::CH;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_1024(smem_raw);
+  uint8_t* Qs = smem;
+  uint8_t* Ks = Qs + C::Q_BYTES;                  // [stage]
+  uint8_t* Vs = Ks + C::STAGES * C::KV_BYTES;     // [stage]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + C::STAGES * C::KV_BYTES);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* vfull = kfull + C::STAGES;
+  uint64_t* empty = vfull + C::STAGES;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
+  const int n_tiles = fa_tiles(q0, BQ, BK, S, causal);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        tma_load_4d(Qs + c * BQ * 128, &map_q, qbar, c * 64, q0, h, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* kst = Ks + stage * C::KV_BYTES;
+        uint8_t* vst = Vs + stage * C::KV_BYTES;
+        mbar_expect_tx(&kfull[stage], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          tma_load_4d(kst + c * BK * 128, &map_k, &kfull[stage], c * 64,
+                      t * BK, h, b);
+        mbar_expect_tx(&vfull[stage], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          tma_load_4d(vst + c * BK * 128, &map_v, &vfull[stage], c * 64,
+                      t * BK, h, b);
+        if (++stage == C::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = wg - 1, warp = (threadIdx.x / 32) % 4,
+              lane = threadIdx.x % 32;
+    // this thread's rows: q0 + r0 and q0 + r0 + 8 (h = 0, 1 below); its
+    // columns of S and O: 8 j + 2 (lane % 4) + {0, 1}
+    const int r0 = cw * 64 + warp * 16 + lane / 4;
+    float s[BK / 2], acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+    const float scale_log2 = scale * 1.44269504088896341f;
+    mbar_wait(qbar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * BK;
+      // S = Q K^T (bf16 in, f32 out)
+      mbar_wait(&kfull[stage], phase);
+      const uint8_t* kst = Ks + stage * C::KV_BYTES;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          wgmma_ss<BK, 0>(
+              s,
+              smem_desc(Qs + c * BQ * 128 + cw * 64 * 128 + k * 32, 16, 1024),
+              smem_desc(kst + c * BK * 128 + k * 32, 16, 1024), c > 0 || k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      // the online softmax, in f32, on logits in log2 units (exp2 of them is
+      // exp of the natural ones; its 2-ulp error is far below bf16's
+      // rounding); a row's 4 threads are one lane quad, its max and sum run
+      // as 4 interleaved chains.  Only the tiles that cross the diagonal or
+      // S of this warpgroup's rows are masked.
+      const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > q0 + cw * 64);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int qi = q0 + r0 + 8 * hh;
+        float mx4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kj = k0 + 8 * j + 2 * (lane % 4) + e;
+            float x = s[4 * j + 2 * hh + e] * scale_log2;
+            if (masked) {
+              if (kj >= S)
+                x = -INFINITY;  // past the sequence: weight exactly 0
+              else if (causal && kj > qi)
+                x = -1e30f;  // the reference's mask value
+            }
+            s[4 * j + 2 * hh + e] = x;
+            mx4[(2 * j + e) % 4] = fmaxf(mx4[(2 * j + e) % 4], x);
+          }
+        float mx = fmaxf(fmaxf(mx4[0], mx4[1]), fmaxf(mx4[2], mx4[3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        float sum4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(s[4 * j + 2 * hh + e] - m_new);
+            s[4 * j + 2 * hh + e] = p;
+            sum4[(2 * j + e) % 4] += p;
+          }
+        float sum = (sum4[0] + sum4[1]) + (sum4[2] + sum4[3]);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const float corr = exp2f(m[hh] - m_new);
+        l[hh] = l[hh] * corr + sum;
+        m[hh] = m_new;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          acc[4 * j + 2 * hh] *= corr;
+          acc[4 * j + 2 * hh + 1] *= corr;
+        }
+      }
+      // P = hi + lo in bf16, as the A fragments of the key blocks of 16:
+      // register r of block kk holds the pair at s[8 kk + 2 r]
+      uint32_t phi[BK / 16][4], plo[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x = s[8 * kk + 2 * r], y = s[8 * kk + 2 * r + 1];
+          __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+          phi[kk][r] = *reinterpret_cast<uint32_t*>(&hi);
+          plo[kk][r] =
+              pack_bf16(x - __low2float(hi), y - __high2float(hi));
+        }
+      // O += hi V + lo V
+      mbar_wait(&vfull[stage], phase);
+      const uint8_t* vst = Vs + stage * C::KV_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t vd = smem_desc(vst + kk * 16 * 128, BK * 128, 1024);
+        wgmma_rs<HD, 1>(acc, phi[kk], vd, 1);
+        wgmma_rs<HD, 1>(acc, plo[kk], vd, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == C::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // o = acc / max(l, 1e-30), in o's contiguous (B, S, H, hd) layout
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long qi = q0 + r0 + 8 * hh;
+      if (qi >= S) continue;
+      const float denom = fmaxf(l[hh], 1e-30f);
+      __nv_bfloat16* orow = o + ((b * (long long)S + qi) * H + h) * hd;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        const float v0 = acc[4 * j + 2 * hh] / denom;
+        const float v1 = acc[4 * j + 2 * hh + 1] / denom;
+        if (col + 1 < hd && (hd % 2) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (col < hd) orow[col] = __float2bfloat16(v0);
+          if (col + 1 < hd) orow[col + 1] = __float2bfloat16(v1);
+        }
+      }
+    }
+  }
 }
 
-// rows [r0, r0 + 64) of one (b, h) slice, transposed into dst[d][r] (the
-// lanes of a warp take consecutive rows, so the shared stores do not
-// conflict); rows at or past S are zero
-template <typename T, int HD>
-__device__ __forceinline__ void load_transposed(float* dst, const T* src,
-                                                long long r0, long long S,
-                                                long long ss, long long sd,
-                                                float scale) {
-  const int r = threadIdx.x & 63;
-  const bool in = r0 + r < S;
-  const T* row = src + (r0 + r) * ss;
-  for (int d = threadIdx.x >> 6; d < HD; d += FA_THREADS / 64)
-    dst[d * 64 + r] = in ? to_f32(row[d * sd]) * scale : 0.f;
+template <int HD>
+struct FfCfg {  // f32, FFMA
+  static constexpr int BQ = 128, BK = HD == 256 ? 32 : 64, THREADS = 256;
+  static constexpr int LD = HD + 4;    // Q and K rows: an odd number of
+                                       // 16-byte units, so 8 rows' float4s
+                                       // fall in 8 bank groups
+  static constexpr int PLD = BK + 16;  // P rows: a warp's two half warps
+                                       // write other banks
+  static constexpr int Q = BQ * LD, K = BK * LD, V = BK * HD, P = BQ * PLD;
+  static constexpr size_t SMEM = sizeof(float) * (Q + K + V + P);
+  static constexpr int MIN_BLOCKS = HD == 64 ? 2 : 1;
+};
+
+// rows [r0, r0 + ROWS) of one (b, h) slice, HD columns, into dst (row
+// stride LDD) by 16-byte cp.async: zero past S and past hd
+template <int HD, int ROWS, int LDD>
+__device__ __forceinline__ void ff_load(float* dst,
+                                        const float* __restrict__ src,
+                                        long long r0, long long S,
+                                        long long ss, int hd) {
+  constexpr int CHUNKS = HD / 4;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * CHUNKS; e += 256) {
+    const int r = e / CHUNKS, c = (e % CHUNKS) * 4;
+    const bool in = r0 + r < S && c < hd;
+    cp_async16(dst + r * LDD + c, in ? src + (r0 + r) * ss + c : src,
+               in ? min(16, 4 * (hd - c)) : 0);
+  }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(FA_THREADS, 2)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H,
-                 long long S, long long sqb, long long sqs, long long sqh,
-                 long long sqd, long long skb, long long sks, long long skh,
-                 long long skd, long long svb, long long svs, long long svh,
-                 long long svd, int causal, float scale) {
-  constexpr int G = HD / 64;  // float4 column groups of O per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;
-  float* Kt = Qt + HD * FA_BQ;
-  float* Vs = Kt + HD * FA_BK;
-  float* Ps = Vs + FA_BK * HD;
+template <int HD>
+__global__ void __launch_bounds__(256, FfCfg<HD>::MIN_BLOCKS)
+    flash_kernel_ffma(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      int H, long long S, int hd, long long sqb,
+                      long long sqs, long long sqh, long long skb,
+                      long long sks, long long skh, long long svb,
+                      long long svs, long long svh, int causal,
+                      float scale) {
+  using C = FfCfg<HD>;
+  constexpr int BQ = C::BQ, BK = C::BK, CJ = BK / 16, G = HD / 64;
+  extern __shared__ __align__(16) float ff_smem[];
+  float* Qs = ff_smem;
+  float* Ks = Qs + C::Q;
+  float* Vs = Ks + C::K;
+  float* Ps = Vs + C::V;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const long long q0 = (long long)(gridDim.y - 1 - blockIdx.y) * FA_BQ;
-  const T* qb = q + b * sqb + h * sqh;
-  const T* kb = k + b * skb + h * skh;
-  const T* vb = v + b * svb + h * svh;
+  const long long q0 = (long long)(gridDim.y - 1 - blockIdx.y) * BQ;
+  const float* qb = q + b * sqb + h * sqh;
+  const float* kb = k + b * skb + h * skh;
+  const float* vb = v + b * svb + h * svh;
+  const int n_tiles = fa_tiles(q0, BQ, BK, S, causal);
 
-  // q * scale in f32 before the product, as the reference
-  load_transposed<T, HD>(Qt, qb, q0, S, sqs, sqd, scale);
+  ff_load<HD, BQ, C::LD>(Qs, qb, q0, S, sqs, hd);
+  ff_load<HD, BK, C::LD>(Ks, kb, 0, S, sks, hd);
+  cp_async_commit();
 
-  // a thread owns query rows ty*4 + i; in S its key columns tx*4 + j, in
-  // O its head columns g*64 + tx*4 + j
-  float m[4], l[4], acc[4][4 * G];
+  // a thread owns query rows ty + 16 i (i < 8); in S the keys tx + 16 j
+  // (j < CJ), in O the head columns g*64 + tx*4 + {0..3} (g < G)
+  float m[8], l[8], acc[8][4 * G];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     m[i] = -1e30f;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < 4 * G; ++j) acc[i][j] = 0.f;
   }
-  // key tiles wholly above the diagonal are skipped
-  const long long last =
-      causal && q0 + FA_BQ < S ? q0 + FA_BQ - 1 : S - 1;
-  const long long n_tiles = last / FA_BK + 1;
-  for (long long t = 0; t < n_tiles; ++t) {
-    const long long k0 = t * FA_BK;
-    load_transposed<T, HD>(Kt, kb, k0, S, sks, skd, 1.f);
-    for (int e = tid; e < FA_BK * HD; e += FA_THREADS) {
-      const int r = e / HD, d = e % HD;
-      Vs[e] = k0 + r < S ? to_f32(vb[(k0 + r) * svs + d * svd]) : 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    const long long k0 = (long long)t * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // K(t) (and Q) landed; every thread is done with V
+    if (t == 0) {     // q * scale in f32 before the product, as the reference
+      for (int e = tid; e < BQ * HD; e += 256)
+        Qs[(e / HD) * C::LD + e % HD] *= scale;
+      __syncthreads();
     }
-    __syncthreads();
+    ff_load<HD, BK, HD>(Vs, vb, k0, S, svs, hd);  // under Q K^T
+    cp_async_commit();
 
-    float s[4][4];
+    float s[8][CJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 qa =
-          *reinterpret_cast<const float4*>(&Qt[d * FA_BQ + ty * 4]);
-      const float4 ka =
-          *reinterpret_cast<const float4*>(&Kt[d * FA_BK + tx * 4]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
+      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 kv[CJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < CJ; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * C::LD +
+                                                 d);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int i = 0; i < 8; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * C::LD + d);
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+        }
+      }
     }
+    cp_async_wait<0>();
+    __syncthreads();  // V(t) landed; every thread is done with K(t)
+    if (t + 1 < n_tiles)  // under the softmax and P V
+      ff_load<HD, BK, C::LD>(Ks, kb, k0 + BK, S, sks, hd);
+    cp_async_commit();
+
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long qi = q0 + ty * 4 + i;
+    for (int i = 0; i < 8; ++i) {
+      const long long qi = q0 + ty + 16 * i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const long long kj = k0 + tx * 4 + j;
+      for (int j = 0; j < CJ; ++j) {
+        const long long kj = k0 + tx + 16 * j;
         if (kj >= S)
           s[i][j] = -INFINITY;  // past the sequence: weight exactly 0
         else if (causal && kj > qi)
@@ -291,81 +1081,230 @@ __global__ void __launch_bounds__(FA_THREADS, 2)
       }
       // the 16 lanes of a row are one half warp
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         s[i][j] = expf(s[i][j] - m_new);
         sum += s[i][j];
+        Ps[(ty + 16 * i) * C::PLD + tx + 16 * j] = s[i][j];
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
       const float corr = expf(m[i] - m_new);
       l[i] = l[i] * corr + sum;
       m[i] = m_new;
 #pragma unroll
       for (int j = 0; j < 4 * G; ++j) acc[i][j] *= corr;
-      *reinterpret_cast<float4*>(&Ps[(ty * 4 + i) * FA_BK + tx * 4]) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
     }
-    __syncthreads();
+    __syncwarp();  // a row's P is written and read by its own half warp
 
-#pragma unroll 2
-    for (int c = 0; c < FA_BK; c += 4) {
-      float p[4][4];
+#pragma unroll 4
+    for (int c = 0; c < BK; c += 4) {
+      float4 vv[4][G];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          vv[cc][g] = *reinterpret_cast<const float4*>(
+              Vs + (c + cc) * HD + g * 64 + tx * 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
         const float4 pv =
-            *reinterpret_cast<const float4*>(&Ps[(ty * 4 + i) * FA_BK + c]);
-        p[i][0] = pv.x;
-        p[i][1] = pv.y;
-        p[i][2] = pv.z;
-        p[i][3] = pv.w;
-      }
+            *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * C::PLD + c);
+        const float p[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
+        for (int cc = 0; cc < 4; ++cc)
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              &Vs[(c + cc) * HD + g * 64 + tx * 4]);
-          const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][g * 4 + j] = fmaf(p[i][cc], vr[j], acc[i][g * 4 + j]);
-        }
+          for (int g = 0; g < G; ++g) {
+            acc[i][4 * g] = fmaf(p[cc], vv[cc][g].x, acc[i][4 * g]);
+            acc[i][4 * g + 1] = fmaf(p[cc], vv[cc][g].y, acc[i][4 * g + 1]);
+            acc[i][4 * g + 2] = fmaf(p[cc], vv[cc][g].z, acc[i][4 * g + 2]);
+            acc[i][4 * g + 3] = fmaf(p[cc], vv[cc][g].w, acc[i][4 * g + 3]);
+          }
       }
     }
-    __syncthreads();
   }
-  // o = acc / max(l, 1e-30), in o's contiguous (B, S, H, HD) layout
+  cp_async_wait<0>();
+  // o = acc / max(l, 1e-30), in o's contiguous (B, S, H, hd) layout
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long qi = q0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const long long qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((b * S + qi) * H + h) * (long long)HD;
+    float* orow = o + ((b * S + qi) * H + h) * (long long)hd;
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+    for (int g = 0; g < G; ++g) {
+      const int col = g * 64 + tx * 4;
+      if (col + 3 < hd && (hd % 4) == 0) {
+        *reinterpret_cast<float4*>(orow + col) = make_float4(
+            acc[i][4 * g] / denom, acc[i][4 * g + 1] / denom,
+            acc[i][4 * g + 2] / denom, acc[i][4 * g + 3] / denom);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        orow[g * 64 + tx * 4 + j] = from_f32<T>(acc[i][g * 4 + j] / denom);
+        for (int j = 0; j < 4; ++j)
+          if (col + j < hd) orow[col + j] = acc[i][4 * g + j] / denom;
+      }
+    }
   }
 }
 
-template <typename T>
-int launch_matmul(const void* a, const void* b, void* c, long long m,
-                  long long n, long long k, long long sam, long long sak,
-                  long long sbk, long long sbn, cudaStream_t stream) {
-  const dim3 grid((unsigned)((n + MM_BN - 1) / MM_BN),
-                  (unsigned)((m + MM_BM - 1) / MM_BM));
-  matmul_kernel<T><<<grid, MM_THREADS, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
-      m, n, k, sam, sak, sbk, sbn);
+// ---------------------------------------------------------------------------
+// Host side: tensor maps, shared-memory limits, launches.
+// ---------------------------------------------------------------------------
+
+// a refused tensor map returns SK_ENCODE_ERROR + its CUresult
+constexpr int SK_ENCODE_ERROR = 100000;
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+std::mutex g_mu;  // guards the caches below (ctypes drops the GIL)
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded (the
+// library links no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// encoded maps by (pointer, dims, strides, box): a call on the same tensors
+// again encodes nothing
+struct MapKey {
+  const void* ptr;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4];
+  int rank;
+};
+struct MapEntry {
+  MapKey key;
+  CUtensorMap map;
+};
+constexpr int MAP_CACHE = 64;
+MapEntry g_maps[MAP_CACHE];
+int g_n_maps = 0, g_next_map = 0;
+
+// a bf16 tensor map of rank 2 or 4 with the 128-byte swizzle; elements past
+// dims read as zero
+int bf16_map(CUtensorMap* out, int rank, const void* ptr,
+             const cuuint64_t* dims, const cuuint64_t* strides_bytes,
+             const cuuint32_t* box) {
+  MapKey key;
+  memset(&key, 0, sizeof key);
+  key.ptr = ptr;
+  key.rank = rank;
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    if (i + 1 < rank) key.strides[i] = strides_bytes[i];
+  }
+  std::lock_guard<std::mutex> lock(g_mu);
+  for (int i = 0; i < g_n_maps; ++i)
+    if (memcmp(&g_maps[i].key, &key, sizeof key) == 0) {
+      *out = g_maps[i].map;
+      return 0;
+    }
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return SK_ENCODE_ERROR + CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+      dims, strides_bytes, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return SK_ENCODE_ERROR + static_cast<int>(r);
+  g_maps[g_next_map] = MapEntry{key, *out};
+  g_next_map = (g_next_map + 1) % MAP_CACHE;
+  if (g_n_maps < MAP_CACHE) ++g_n_maps;
+  return 0;
+}
+
+// cudaFuncAttributeMaxDynamicSharedMemorySize, set once per kernel and
+// device
+int allow_smem(const void* kernel, int bytes) {
+  struct Done {
+    const void* kernel;
+    int device;
+  };
+  static Done done[64];
+  static int n_done = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::lock_guard<std::mutex> lock(g_mu);
+  for (int i = 0; i < n_done; ++i)
+    if (done[i].kernel == kernel && done[i].device == dev) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_done < 64) done[n_done++] = Done{kernel, dev};
+  return 0;
+}
+
+template <int BN>
+int launch_matmul_wgmma(const void* a, const void* b, void* c, long long m,
+                        long long n, long long k, long long sam,
+                        long long sbk, int sms, cudaStream_t stream) {
+  using C = MmCfg<BN>;
+  CUtensorMap ma, mb;
+  const cuuint64_t da[2] = {(cuuint64_t)k, (cuuint64_t)m},
+                   sa[1] = {(cuuint64_t)sam * 2};
+  const cuuint32_t ba[2] = {64, C::BM};
+  const cuuint64_t db[2] = {(cuuint64_t)n, (cuuint64_t)k},
+                   sb[1] = {(cuuint64_t)sbk * 2};
+  const cuuint32_t bb[2] = {64, C::BK};
+  int err = bf16_map(&ma, 2, a, da, sa, ba);
+  if (err == 0) err = bf16_map(&mb, 2, b, db, sb, bb);
+  if (err == 0)
+    err = allow_smem(reinterpret_cast<const void*>(&matmul_kernel_wgmma<BN>),
+                     C::SMEM);
+  if (err != 0) return err;
+  const long long tiles = ((m + C::BM - 1) / C::BM) * ((n + BN - 1) / BN);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  matmul_kernel_wgmma<BN><<<grid, WG_THREADS, C::SMEM, stream>>>(
+      ma, mb, static_cast<__nv_bfloat16*>(c), (int)m, (int)n, (int)k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_matmul_ffma(const void* a, const void* b, void* c, void* ws,
+                       long long m, long long n, long long k, long long sam,
+                       long long sbk, int splits, int sms,
+                       cudaStream_t stream) {
+  int err = allow_smem(reinterpret_cast<const void*>(&matmul_kernel_ffma),
+                       (int)MF_SMEM);
+  if (err != 0) return err;
+  const long long units = ((m + MF_BM - 1) / MF_BM) * splits *
+                          ((n + MF_BN - 1) / MF_BN);
+  float* out = static_cast<float*>(splits > 1 ? ws : c);
+  matmul_kernel_ffma<<<(unsigned)units, MF_THREADS, MF_SMEM, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), out, m, n,
+      k, sam, sbk, splits);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || splits == 1) return err;
+  const long long mn = m * n, blocks = (mn + 255) / 256,
+                  cap = 8LL * sms;
+  matmul_reduce_kernel<<<(unsigned)(blocks < cap ? blocks : cap), 256, 0,
+                         stream>>>(out, static_cast<float*>(c), mn, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -379,40 +1318,83 @@ int launch_rmsnorm(const void* x, const void* w, void* y, long long rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
-int launch_flash(const void* q, const void* k, const void* v, void* o,
-                 long long b, long long s, long long h, const long long* st,
-                 int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = fa_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((unsigned)(b * h), (unsigned)((s + FA_BQ - 1) / FA_BQ));
-  flash_kernel<T, HD><<<grid, FA_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), (int)h, s, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      causal, scale);
+template <int HD>
+int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
+                       long long b, long long s, long long h, long long hd,
+                       const long long* st, int causal, float scale,
+                       cudaStream_t stream) {
+  using C = FaCfg<HD>;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)s, (cuuint64_t)h,
+                              (cuuint64_t)b};
+  const void* ptrs[3] = {q, k, v};
+  const cuuint32_t rows[3] = {C::BQ, C::BK, C::BK};
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {  // strides (b, s, h, d) of q, k, v
+    const long long* t = st + 4 * i;
+    const cuuint64_t strides[3] = {(cuuint64_t)t[1] * 2,
+                                   (cuuint64_t)t[2] * 2,
+                                   (cuuint64_t)t[0] * 2};
+    const cuuint32_t box[4] = {64, rows[i], 1, 1};
+    const int err = bf16_map(&maps[i], 4, ptrs[i], dims, strides, box);
+    if (err != 0) return err;
+  }
+  const int err = allow_smem(
+      reinterpret_cast<const void*>(&flash_kernel_wgmma<HD>), C::SMEM);
+  if (err != 0) return err;
+  const dim3 grid((unsigned)(b * h), (unsigned)((s + C::BQ - 1) / C::BQ));
+  flash_kernel_wgmma<HD><<<grid, WG_THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), (int)h,
+      (int)s, (int)hd, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_flash_ffma(const void* q, const void* k, const void* v, void* o,
+                      long long b, long long s, long long h, long long hd,
+                      const long long* st, int causal, float scale,
+                      cudaStream_t stream) {
+  using C = FfCfg<HD>;
+  const int err = allow_smem(
+      reinterpret_cast<const void*>(&flash_kernel_ffma<HD>), (int)C::SMEM);
+  if (err != 0) return err;
+  const dim3 grid((unsigned)(b * h), (unsigned)((s + C::BQ - 1) / C::BQ));
+  flash_kernel_ffma<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), (int)h, s,
+      (int)hd, st[0], st[1], st[2], st[4], st[5], st[6], st[8], st[9],
+      st[10], causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Shapes, strides (in elements) and the
-// limits (hd in {64, 128}, grid sizes) are checked by the Python wrappers
-// before the call; an unknown dtype or hd returns cudaErrorInvalidValue.
+// dtype: 0 float32, 1 bfloat16.  Shapes, strides (in elements) and limits
+// are checked by the Python wrappers before the call: unit inner strides,
+// other strides on 16-byte boundaries, M, N, K, S < 2**31, hd <= 256.  An
+// argument outside them returns cudaErrorInvalidValue.
 
-extern "C" int sk_matmul(const void* a, const void* b, void* c, long long m,
-                         long long n, long long k, long long sam,
+// c = a @ b.  bf16: `variant` is the tile width BN (128 or 192),
+// splits 1, a persistent grid of min(tiles, sms) CTAs.  f32: `splits` K
+// ranges, each summed into ws + z m n (f32, splits m n elements) and then
+// into c in split order by a second kernel; ws unused at 1.  `sms` is the
+// card's SM count.
+extern "C" int sk_matmul(const void* a, const void* b, void* c, void* ws,
+                         long long m, long long n, long long k, long long sam,
                          long long sak, long long sbk, long long sbn,
-                         int dtype, void* stream) {
+                         int variant, int splits, int dtype, int sms,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sak != 1 || sbn != 1 || splits < 1 || sms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_matmul<float>(a, b, c, m, n, k, sam, sak, sbk, sbn, st);
-  if (dtype == 1)
-    return launch_matmul<__nv_bfloat16>(a, b, c, m, n, k, sam, sak, sbk, sbn,
-                                        st);
+    return launch_matmul_ffma(a, b, c, ws, m, n, k, sam, sbk, splits, sms,
+                              st);
+  if (dtype == 1 && splits == 1) {
+    if (variant == 128)
+      return launch_matmul_wgmma<128>(a, b, c, m, n, k, sam, sbk, sms, st);
+    if (variant == 192)
+      return launch_matmul_wgmma<192>(a, b, c, m, n, k, sam, sbk, sms, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -438,21 +1420,39 @@ extern "C" int sk_flash_attention(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long strides[12] = {sqb, sqs, sqh, sqd, skb, sks,
                                  skh, skd, svb, svs, svh, svd};
-  if (dtype == 0 && hd == 64)
-    return launch_flash<float, 64>(q, k, v, o, b, s, h, strides, causal,
+  if (sqd != 1 || skd != 1 || svd != 1 || hd < 1 || hd > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int pad = hd <= 64 ? 64 : (hd <= 128 ? 128 : 256);
+  if (dtype == 0) {
+    if (pad == 64)
+      return launch_flash_ffma<64>(q, k, v, o, b, s, h, hd, strides, causal,
                                    scale, st);
-  if (dtype == 0 && hd == 128)
-    return launch_flash<float, 128>(q, k, v, o, b, s, h, strides, causal,
+    if (pad == 128)
+      return launch_flash_ffma<128>(q, k, v, o, b, s, h, hd, strides, causal,
                                     scale, st);
-  if (dtype == 1 && hd == 64)
-    return launch_flash<__nv_bfloat16, 64>(q, k, v, o, b, s, h, strides,
-                                           causal, scale, st);
-  if (dtype == 1 && hd == 128)
-    return launch_flash<__nv_bfloat16, 128>(q, k, v, o, b, s, h, strides,
-                                            causal, scale, st);
+    return launch_flash_ffma<256>(q, k, v, o, b, s, h, hd, strides, causal,
+                                  scale, st);
+  }
+  if (dtype == 1) {
+    if (pad == 64)
+      return launch_flash_wgmma<64>(q, k, v, o, b, s, h, hd, strides, causal,
+                                    scale, st);
+    if (pad == 128)
+      return launch_flash_wgmma<128>(q, k, v, o, b, s, h, hd, strides,
+                                     causal, scale, st);
+    return launch_flash_wgmma<256>(q, k, v, o, b, s, h, hd, strides, causal,
+                                   scale, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* sk_error_string(int err) {
+  if (err >= SK_ENCODE_ERROR) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof msg,
+             "cuTensorMapEncodeTiled refused a tensor map (CUresult %d)",
+             err - SK_ENCODE_ERROR);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -3,13 +3,17 @@ MHA inputs, causal or not, computed in f32 and cast to ``q.dtype``.
 
 For tensors on the card it launches the hand-written CUDA kernel
 (``csrc/standalone.cu`` ``sk_flash_attention``: one CTA per (b·h,
-64-query block), keys in tiles of 64, the online softmax in f32, q, k and
-v read through their strides), which replaces the Pallas kernel of the
-JAX package (``repro/kernels/flash_attention.py`` ``flash_attention``,
-``pallas_call`` at :77); for tensors on the CPU it runs
-``flash_attention_plain``, and on any other device it raises.  ``bq``
-and ``bk`` keep the reference's clamp and divisibility check; the CUDA
-tiles are the kernel's own.  The kernel takes hd ∈ ``SUPPORTED_HD``.
+128-query block), the online softmax in f32, q, k and v read through
+their strides; bf16 on the tensor cores with P split into bf16 hi + lo,
+f32 on FFMA), which replaces the Pallas kernel of the JAX package
+(``repro/kernels/flash_attention.py`` ``flash_attention``, ``pallas_call``
+at :77); for tensors on the CPU it runs ``flash_attention_plain``, and on
+any other device it raises.  ``bq`` and ``bk`` keep the reference's clamp
+and divisibility check; the CUDA tiles are the kernel's own.  The kernel
+is built at the head widths ``HD_PAD`` and takes any hd up to
+``MAX_HD``, the columns past hd read as zero; a wider head raises
+(shared memory per CTA).  Inputs the kernel cannot copy as they lie are
+copied first (``build.tma_ready``).
 """
 from __future__ import annotations
 
@@ -18,16 +22,17 @@ from typing import Tuple
 
 import torch
 
-from .build import dtype_code, launch, placement
+from .build import dtype_code, launch, placement, tma_ready
 
-__all__ = ["flash_attention", "flash_attention_plain", "SUPPORTED_HD"]
+__all__ = ["flash_attention", "flash_attention_plain", "HD_PAD", "MAX_HD"]
 
-#: head widths the CUDA kernel is compiled for (the tests' and
-#: deepseek-7b's)
-SUPPORTED_HD = (64, 128)
+#: head widths the CUDA kernel is compiled for; hd runs in the smallest
+#: that holds it
+HD_PAD = (64, 128, 256)
+MAX_HD = HD_PAD[-1]
 
 #: the kernel's query block: the grid's second axis has at most 65535
-_KERNEL_BQ = 64
+_KERNEL_BQ = 128
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int,
@@ -54,12 +59,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if placement(q, k, v) == "cpu":
         return flash_attention_plain(q, k, v, bq=bq, bk=bk, causal=causal)
     code = dtype_code(q, k, v)
-    if hd not in SUPPORTED_HD:
-        raise NotImplementedError(f"the CUDA flash_attention takes hd in "
-                                  f"{SUPPORTED_HD}, not {hd}")
+    if hd > MAX_HD:
+        raise NotImplementedError(
+            f"the CUDA flash_attention takes hd <= {MAX_HD} (its K and V "
+            f"tiles fill a CTA's shared memory), not {hd}")
     if b * h >= 2 ** 31 or -(-s // _KERNEL_BQ) > 65535:
         raise NotImplementedError("the CUDA flash_attention takes B·H < 2**31 "
                                   f"and S <= {65535 * _KERNEL_BQ}")
+    q, k, v = tma_ready(q), tma_ready(k), tma_ready(v)
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), b, s, h, hd, *q.stride(),

@@ -921,6 +921,7 @@ def test_cuda_tp2_chip_isolation(cuda):
 #: (flash attention at B=2, with its (bq, bk)), then deepseek-7b's full
 #: width (the up-projection of a B=2, 128-token prefill chunk, its
 #: rmsnorm, attention over the 4096-token context with 32 heads of 128)
+#: and attention at gemma-7b's (16 heads of 256)
 STANDALONE = [
     ("matmul", (128, 128, 128), {}), ("matmul", (256, 384, 128), {}),
     ("matmul", (128, 512, 256), {}), ("matmul", (384, 128, 384), {}),
@@ -934,6 +935,7 @@ STANDALONE = [
      {"bq": 64, "bk": 64, "causal": False}),
     ("flash_attention", (1, 4096, 32, 128), {}),
     ("flash_attention", (1, 4096, 32, 128), {"causal": False}),
+    ("flash_attention", (1, 4096, 16, 256), {}),
 ]
 
 #: (rtol, atol) of a kernel against its plain version, f32 then bf16.
@@ -976,20 +978,32 @@ def _standalone_inputs(name, dims, dtype, seed=0):
     return tuple(x.to(dtype) for x in xs)
 
 
+def _standalone_launches(name, dims, dtype):
+    """CUDA kernels one call launches: 1, or 2 for an f32 matmul whose K
+    is split (the GEMM, then the sum of its partial tiles)."""
+    if name != "matmul" or dtype != torch.float32:
+        return 1
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.matmul import plan
+    m, k, n = dims
+    return 1 if plan(m, n, k, 0, sm_count(torch.device("cuda")))[1] == 1 \
+        else 2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name,dims,kw", STANDALONE)
 def test_cuda_standalone_kernel_matches_plain_version(cuda, name, dims, kw,
                                                       dtype):
-    """One launch of the kernel, counted once, within STANDALONE_TOL of
-    the plain version on the same inputs, in the input's type and
-    shape."""
+    """One call of the kernel, each CUDA kernel it launches counted once,
+    within STANDALONE_TOL of the plain version on the same inputs, in the
+    input's type and shape."""
     from repro_torch import kernels as sk
     xs = _standalone_inputs(name, dims, dtype)
     sk.reset_launch_counts()
     got = getattr(sk, name)(*xs, **kw)
     torch.cuda.synchronize()
-    assert sk.launch_counts()[name] == 1
+    assert sk.launch_counts()[name] == _standalone_launches(name, dims, dtype)
     want = getattr(sk, name + "_plain")(*xs, **kw)
     assert got.dtype == dtype and got.shape == want.shape
     assert torch.isfinite(got.float()).all()
@@ -1042,9 +1056,9 @@ def test_cuda_standalone_kernels_read_strides(cuda):
 
 @pytest.mark.gpu
 def test_cuda_standalone_limits_raise_before_launch(cuda):
-    """Bad shapes raise ValueError, an unsupported head width or element
-    type NotImplementedError, inputs on two devices ValueError; none of
-    them launches a kernel."""
+    """Bad shapes raise ValueError, a head wider than 256 or an
+    unsupported element type NotImplementedError, inputs on two devices
+    ValueError; none of them launches a kernel."""
     from repro_torch import kernels as sk
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
                                                      device="cuda")
@@ -1056,8 +1070,9 @@ def test_cuda_standalone_limits_raise_before_launch(cuda):
                 lambda: sk.rmsnorm(z(128, 64), torch.zeros(64))]:
         with pytest.raises(ValueError):
             bad()
-    for bad in [lambda: sk.flash_attention(*[z(1, 128, 2, 96)] * 3),
-                lambda: sk.flash_attention(*[z(1, 128, 2, 32)] * 3),
+    for bad in [lambda: sk.flash_attention(*[z(1, 128, 2, 320)] * 3),
+                lambda: sk.flash_attention(
+                    *[z(1, 128, 2, 320, dt=torch.bfloat16)] * 3),
                 lambda: sk.matmul(z(128, 64, dt=torch.float16),
                                   z(64, 128, dt=torch.float16)),
                 lambda: sk.rmsnorm(z(128, 64), z(64, dt=torch.bfloat16))]:
@@ -1065,3 +1080,44 @@ def test_cuda_standalone_limits_raise_before_launch(cuda):
             bad()
     torch.cuda.synchronize()
     assert not any(sk.launch_counts().values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [32, 33, 64, 96, 128, 256])
+def test_cuda_flash_attention_every_head_width(cuda, hd, causal, dtype):
+    """Every head width up to 256 runs in the smallest build that holds
+    it (64, 128 or 256 columns, the rest read as zero) within
+    STANDALONE_TOL of the plain version, at S = 200 (no multiple of the
+    kernels' tiles); hd = 33 rows are no multiple of 16 bytes, so the
+    wrapper copies them first."""
+    from repro_torch import kernels as sk
+    xs = _standalone_inputs("flash_attention", (2, 200, 3, hd), dtype,
+                            seed=hd)
+    kw = {"bq": 200, "bk": 200, "causal": causal}
+    sk.reset_launch_counts()
+    got = sk.flash_attention(*xs, **kw)
+    torch.cuda.synchronize()
+    assert sk.launch_counts()["flash_attention"] == 1
+    want = sk.flash_attention_plain(*xs, **kw)
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    _assert_standalone_close("flash_attention", got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,dims,kw", [
+    ("matmul", (256, 4096, 11008), {}), ("matmul", (1, 4096, 3), {}),
+    ("rmsnorm", (256, 4096), {}),
+    ("flash_attention", (1, 4096, 32, 128), {}),
+    ("flash_attention", (1, 1024, 8, 256), {"causal": False}),
+])
+def test_cuda_standalone_repeated_launches_bitwise(cuda, name, dims, kw,
+                                                   dtype):
+    """Two launches on the same inputs agree bit for bit: no atomics, the
+    f32 matmul's split-K partial tiles summed in a fixed order."""
+    from repro_torch import kernels as sk
+    xs = _standalone_inputs(name, dims, dtype, seed=2)
+    first = getattr(sk, name)(*xs, **kw)
+    assert torch.equal(getattr(sk, name)(*xs, **kw), first)

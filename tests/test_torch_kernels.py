@@ -116,6 +116,129 @@ def test_ref_oracles_match_jax(dtype):
                                         causal=causal), tol)
 
 
+@pytest.mark.parametrize("hd", [32, 96, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_padded_widths_match_jax(hd, dtype):
+    """The widths the CUDA kernel pads (32 and 96 into its 64- and
+    128-wide builds) and gemma-7b's 256: the plain version against the
+    reference's kernel (interpret mode) and oracle, causal, at the
+    reference's tolerances (tests/test_kernels.py:52)."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(dtype, *[(2, 128, 2, hd)] * 3,
+                                           seed=hd)
+    out = tk.flash_attention(qt, kt, vt, bq=64, bk=64)
+    assert out.dtype == qt.dtype and out.shape == (2, 128, 2, hd)
+    tol = TOL["flash_attention"][dtype]
+    _close(jk.flash_attention(qj, kj, vj, bq=64, bk=64), out, tol)
+    _close(jref.flash_attention_ref(qj, kj, vj), out, tol)
+
+
+#: chip_smoke.py's and tests/test_torch_gpu.py's bf16 flash tolerance
+#: against the plain version: rtol, atol, and the share of outputs whose
+#: bits may differ
+BF16_FLASH_TOL, BF16_DIFFER = (8e-3, 1e-4), 0.01
+
+
+def _flash_bf16_emulated(q, k, v, split, bk=64):
+    """The bf16 CUDA kernel's arithmetic in torch (hd=128: 64-key
+    tiles): bf16 operands, Q K^T with exact products summed in f32 and
+    scaled after the product, the online softmax in f32 on logits in
+    log2 units, P fed to the P V product as bf16 hi + lo (``split``) or
+    rounded to bf16, the sums in f32."""
+    b, s, h, hd = q.shape
+    qf, kf, vf = (t.permute(0, 2, 1, 3).float() for t in (q, k, v))
+    scale = 1.0 / hd ** 0.5 * 1.4426950408889634
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, hd))
+    pos = torch.arange(s)
+    for k0 in range(0, s, bk):
+        x = (qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)) * scale
+        x = x.masked_fill(pos[k0:k0 + bk][None, :] > pos[:, None], -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        p = torch.exp2(x - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        vt = vf[:, :, k0:k0 + bk]
+        pv = hi @ vt + ((p - hi).bfloat16().float() @ vt if split else 0)
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp(min=1e-30)).permute(0, 2, 1, 3).bfloat16()
+
+
+def test_bf16_flash_kernel_arithmetic_needs_p_split():
+    """S=1024, H=4, hd=128, causal: with P split into bf16 hi + lo the
+    kernel's arithmetic stays within the gpu tests' bf16 tolerance of the
+    plain version with at most 1 % of the outputs' bits differing; with P
+    rounded to bf16 it does not (the reason the kernel runs the P V
+    product twice)."""
+    (_, q), (_, k), (_, v) = _inputs("bfloat16", *[(1, 1024, 4, 128)] * 3,
+                                     seed=3)
+    want = tk.flash_attention_plain(q, k, v)
+    got = _flash_bf16_emulated(q, k, v, split=True)
+    rtol, atol = BF16_FLASH_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert float((got != want).float().mean()) <= BF16_DIFFER
+    rounded = _flash_bf16_emulated(q, k, v, split=False)
+    assert float((rounded != want).float().mean()) > 10 * BF16_DIFFER
+
+
+def test_tma_ready_copies_only_refused_layouts():
+    """``tma_ready`` returns an operand the kernels can copy as it lies
+    (unit inner stride, other strides multiples of 16 bytes) unchanged,
+    and copies any other into rows padded to 16 bytes: the same values,
+    so the plain versions give bitwise the same outputs on the copies.
+    The layouts are (130, 17) x (17, 257) operands (34- and 514-byte bf16
+    rows), a transposed operand, and a 33-wide head."""
+    rng = np.random.default_rng(7)
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.from_numpy(rng.standard_normal((130, 17), np.float32))
+        b = torch.from_numpy(rng.standard_normal((17, 257), np.float32))
+        a, b = a.to(dt), b.to(dt)
+        ok = torch.zeros(64, 128, dtype=dt)
+        assert tbuild.tma_ready(ok) is ok
+        for t in (a, b, b.T.contiguous().T):
+            r = tbuild.tma_ready(t)
+            assert r is not t and torch.equal(r, t)
+            assert r.stride(-1) == 1
+            assert all(st * r.element_size() % 16 == 0
+                       for st in r.stride()[:-1])
+        assert torch.equal(tk.matmul_plain(tbuild.tma_ready(a),
+                                           tbuild.tma_ready(b), bm=130,
+                                           bn=257),
+                           tk.matmul_plain(a, b, bm=130, bn=257))
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (2, 3, 64, 33), np.float32)).to(dt).transpose(1, 2)
+            for _ in range(3))
+        ready = [tbuild.tma_ready(t) for t in (q, k, v)]
+        assert all(r is not t and torch.equal(r, t)
+                   for r, t in zip(ready, (q, k, v)))
+        assert torch.equal(tk.flash_attention_plain(*ready, bq=64, bk=64),
+                           tk.flash_attention_plain(q, k, v, bq=64, bk=64))
+        bhsd = torch.zeros(2, 3, 64, 64, dtype=dt).transpose(1, 2)
+        assert tbuild.tma_ready(bhsd) is bhsd
+
+
+def test_matmul_plan_fills_the_sms():
+    """The launch plan at deepseek-7b's (256, 4096) x (4096, 11008) on an
+    H100's 132 SMs: bf16 in 128 x 192 tiles (116 tiles, one wave; 128
+    take two waves), f32 in 128 x 128 tiles
+    with K split 3 ways (516 units, 3.9 an SM, against 1.3 tiles an SM
+    in two rounds unsplit); a split never gets less than one 32-deep
+    slab."""
+    from repro_torch.kernels.matmul import plan
+    assert plan(256, 11008, 4096, 1, 132) == (192, 1)
+    assert plan(256, 11008, 4096, 0, 132) == (0, 3)
+    assert plan(130, 257, 17, 0, 132) == (0, 1)
+    assert plan(4096, 4096, 4096, 1, 132) == (128, 1)
+    assert {plan(m, n, 4096, 1, 132)[0] for m in (1, 256, 4096)
+            for n in (64, 11008, 4096)} <= {128, 192}   # the built widths
+    for m, n, k in [(1, 3, 4096), (128, 128, 128), (100, 72, 60)]:
+        bn, splits = plan(m, n, k, 0, 132)
+        assert 1 <= splits <= -(-k // 32)
+
+
 def test_ref_decode_attention_gqa_matches_jax():
     """decode_attention_ref with 8 query heads over 2 KV heads and ragged
     lengths (one of them 1, one the whole cache)."""
