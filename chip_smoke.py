@@ -55,7 +55,10 @@ for that many workers, and the partitioner picks the width it uses.
    in ten pairs (the reason the dense ones exist; phase 3b times
    granite's through the extended and the full ones), the per-worker
    counters and the dynamic pop sources are shown, and each task kind is
-   timed alone under the static scheduler;
+   timed alone under the static scheduler, each worker walking its real
+   rows (the plan's walk lists), beside the walk's two tables: every row
+   a noop with its event words (the walk), and without them (the rows
+   alone; the difference is the event chain);
 2b. the same checks on granite-moe-1b-a400m cut to 2 layers at full width
    (32 experts, top-8; the MoE kinds 9-11: router top-k, expert GEMM,
    combine), with the routers' zeros bitwise the plain version's;
@@ -96,9 +99,12 @@ for that many workers, and the partitioner picks the width it uses.
    each, every decode step within 3e-4 of the torch Program
    (teacher-forced), the static W_max, W = 1 and dynamic tables bitwise
    on one heap, the step timed beside its bound;
-3f. the same for full 48-layer musicgen-large (32 MHA heads of 64, tanh
-   GELU; its 2-layer checks folded into this phase: the bitwise tables
-   and the kernel against its plain version at full depth);
+3f. the same for musicgen-large (32 MHA heads of 64, tanh GELU) at 24
+   of its 48 layers (``MUSICGEN_SERVED_LAYERS``: its 48-layer host
+   compile took 204-343 s on the H100 machine's host and brought the
+   script near its time limit); its 2-layer
+   checks folded into this phase: the bitwise tables and the kernel
+   against its plain version at the served depth;
 2d. tensor parallelism over the fused transport (C chips as regions of
    one heap on the one card, kinds 14-15: the ring send and the
    all-reduce chunk): deepseek-7b and granite at 2 layers and full width,
@@ -118,7 +124,8 @@ for that many workers, and the partitioner picks the width it uses.
    phase 1; bf16 on the tensor cores, f32 on FFMA) at the largest f32
    shapes of ``tests/test_kernels.py`` (and its non-causal case), at
    deepseek-7b's full width, attention at gemma-7b's head width of 256
-   and at the padded widths 32 and 96, f32 and bf16:
+   and at the padded widths 32 and 96, rmsnorm at full width also on
+   strided and unaligned rows (its scalar path), f32 and bf16:
    each launched through its entry point and held to its plain version
    (f32 at the reference's tolerances, bf16 to one ulp with at most 1 %
    of the outputs' bits differing), each library call
@@ -883,10 +890,10 @@ KIND_NAMES = ("noop", "matmul", "rmsnorm", "rope", "glu", "resid",
 
 def _kernel_ms(ex, toks, lens, n, descs=None):
     """Mean milliseconds of the executor's kernel launch (or of a launch
-    of ``descs`` on its heap) over ``n`` launches after one warm-up, by
-    CUDA events around each launch alone; each launch follows the step's
-    ``index_copy_``, which zeroes the event counters and rewrites the
-    queue image."""
+    of ``descs`` on its heap, through the plan's walk lists) over ``n``
+    launches after one warm-up, by CUDA events around each launch alone;
+    each launch follows the step's ``index_copy_``, which zeroes the event
+    counters and rewrites the queue image."""
     from repro_torch.megakernel import megakernel
     launch = ex.launch
     if descs is not None:
@@ -894,7 +901,7 @@ def _kernel_ms(ex, toks, lens, n, descs=None):
         sched = torch.from_numpy(plan.dyn.sched_table()).cuda() \
             if plan.dynamic else None
         launch = lambda: megakernel(ex.heap, descs, plan.statics, sched,
-                                    ex._acks)
+                                    ex._acks, ex._walk)
     times = []
     for i in range(n + 1):
         ex.write_step_inputs(toks, lens)
@@ -909,16 +916,30 @@ def _kernel_ms(ex, toks, lens, n, descs=None):
     return sum(times) / n
 
 
+def _rows_alone(plan):
+    """The walk's second table: every row a noop with its event words
+    cleared, walked through the plan's lists (each worker's real rows):
+    the per-row cost alone (ring, barriers, dispatch).  The all-noop
+    table less this one is the event chain."""
+    table = plan.descs.copy()
+    table[:, 0] = 0
+    table[:, 32:35] = -1
+    return torch.from_numpy(table).cuda()
+
+
 def _time_by_kind(ex, plan, toks, lens):
     """Kernel time of each task kind alone: the step's descriptor table
     with every other row turned into a noop (its event words kept, so the
-    workers still wait and signal), one launch after a warm-up.  The
-    all-noop table is the walk itself (descriptor fetch, barriers, the
-    event protocol).  The COMM kinds (14 send, 15 all-reduce chunk) run
-    together: a ring send of round r >= 1 waits for its receiver's
-    arrivals.  Run last: the heap's activations are overwritten with
-    partial results.  Returns the log entries and {name: ms}."""
+    workers still wait and signal), one launch after a warm-up, each
+    worker walking its real rows (the plan's lists).  The all-noop table
+    is the walk itself (ring, barriers, the event protocol), and the
+    rows-alone table (``_rows_alone``) its per-row part.  The COMM kinds
+    (14 send, 15 all-reduce chunk) run together: a ring send of round r
+    >= 1 waits for its receiver's arrivals.  Run last: the heap's
+    activations are overwritten with partial results.  Returns the log
+    entries and {name: ms}, "rows" the rows-alone table's."""
     kinds = plan.descs[:, 0]
+    real = plan.walk.size - plan.num_workers - 1
     groups = [(c,) for c in [0] + sorted(set(kinds.tolist()) - {0, 14, 15})]
     if 14 in kinds:
         groups.append((14, 15))
@@ -927,10 +948,13 @@ def _time_by_kind(ex, plan, toks, lens):
         table = plan.descs.copy()
         table[~np.isin(kinds, codes), 0] = 0
         ms = _kernel_ms(ex, toks, lens, 1, torch.from_numpy(table).cuda())
-        n = int(np.isin(kinds, codes).sum()) if codes[0] else len(kinds)
+        n = int(np.isin(kinds, codes).sum()) if codes[0] else real
         name = "+".join(KIND_NAMES[c] for c in codes)
         out.append(f"{name} {ms:.2f} ms/{n}")
         times[name] = ms
+    times["rows"] = _kernel_ms(ex, toks, lens, 1, _rows_alone(plan))
+    out.append(f"rows alone {times['rows']:.2f} ms/{real} (event chain "
+               f"{times['noop'] - times['rows']:.2f} ms)")
     return out, times
 
 
@@ -979,6 +1003,11 @@ PROMPTS = (16, 40, 72, 100)           # ragged prompt lengths, tokens
 #: the host CPU of an H100 machine) do not both fit the script's time
 #: limit
 MAMBA_SERVED_LAYERS = 16
+
+#: layers of musicgen-large's served phase 3f (of 48): its 48-layer host
+#: compile took up to 343 s on the host of an H100 machine, which with
+#: the other phases' host time left the script within 10 % of its limit
+MUSICGEN_SERVED_LAYERS = 24
 
 
 def _serve_embeds(prog, cfg, rng, chunk=16, new=8):
@@ -1278,8 +1307,8 @@ def phase_serve(cfg, w_max, tag):
         + " ".join(p if k == 1 else f"{p} x{k}" for p, k in runs))
     by_kind, kind_ms = _time_by_kind(ex, plan, toks, lens)
     log(f"  kernel time by kind alone under the static scheduler at W={W} "
-        "(kind ms/tasks; noop = the walk of all rows with the event "
-        "protocol): " + ", ".join(by_kind))
+        "(kind ms/tasks; noop = the walk of each worker's real rows with "
+        "the event protocol): " + ", ".join(by_kind))
     if moe:
         # does routing change an expert GEMM's time?  Kind 10 alone with
         # the routers the heap holds, then with every router weight 0
@@ -1303,7 +1332,11 @@ def phase_serve(cfg, w_max, tag):
            "ms_dyn_ragged": ms_dyn_ragged,
            "ms_static_ragged": ms_static_ragged, "dyn_walk_ms": dyn_walk_ms,
            "bound_ragged_ms": bound_ragged, "served_max_err": worst,
-           "compile_s": compile_s, "walk_ms": kind_ms["noop"]}
+           "compile_s": compile_s, "walk_ms": kind_ms["noop"],
+           "walk_rows_ms": kind_ms["rows"],
+           "walk_events_ms": kind_ms["noop"] - kind_ms["rows"],
+           "real_rows": int(plan.walk.size - W - 1),
+           "grid_rows": int(plan.descs.shape[0])}
     if var < len(VARIANTS) - 1:
         for (sched, v), t in ab.items():
             key = "ms_ab_" if sched == "static" else "ms_dyn_ab_"
@@ -1689,7 +1722,11 @@ def phase_tp_serve(cfg, w_max, tag):
     return {"launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "tp": 4, "lanes": plan.num_workers,
-            "ms_ragged": ms_ragged, "walk_ms": walk_ms, "ms_tp2": ms2,
+            "ms_ragged": ms_ragged, "walk_ms": walk_ms,
+            "walk_rows_ms": kind_ms["rows"],
+            "walk_events_ms": kind_ms["noop"] - kind_ms["rows"],
+            "real_rows": int(plan.walk.size - plan.num_workers - 1),
+            "grid_rows": int(plan.descs.shape[0]), "ms_tp2": ms2,
             "walk_tp2_ms": walk2, "program_step_ms": step_ms,
             "compile_s": compile_s, "stamp_s": stamp_s, "peak_gb": peak_gb,
             "comm_ms": kind_ms["send+allreduce_chunk"],
@@ -1704,12 +1741,16 @@ def phase_tp_serve(cfg, w_max, tag):
 #: deepseek-llm-7b's 4096-token context (32 heads of 128), (c) attention
 #: at gemma-7b's head width (16 heads of 256, configs/gemma_7b.py) over
 #: the same context, and at the widths the kernel pads (32, every
-#: reduced config's; 96)
+#: reduced config's; 96); rmsnorm also on rows its scalar path takes
+#: (``_layout``: every other column of a wider tensor, and a start one
+#: element past a 16-byte boundary)
 STANDALONE_CASES = (
     ("matmul", "test", (384, 128, 384), {}),
     ("matmul", "full", (256, 4096, 11008), {}),
     ("rmsnorm", "test", (256, 512), {}),
     ("rmsnorm", "full", (256, 4096), {}),
+    ("rmsnorm", "full strided", (256, 4096), {"layout": "strided"}),
+    ("rmsnorm", "full unaligned", (256, 4096), {"layout": "unaligned"}),
     ("flash_attention", "test", (2, 256, 4, 64), {"bq": 128, "bk": 64}),
     ("flash_attention", "test non-causal", (1, 128, 2, 64),
      {"bq": 64, "bk": 64, "causal": False}),
@@ -1750,7 +1791,7 @@ LIBRARY_TOL = {"matmul": (1e-4, 2e-2), "rmsnorm": (1e-5, 3e-2),
 #: matmul_kernel_wgmma<BN> and matmul_kernel_ffma, flash_kernel_wgmma<HD>
 #: and flash_kernel_ffma<HD>)
 STANDALONE_SYMBOLS = {"matmul": ("matmul_kernel", "matmul_reduce_kernel"),
-                      "rmsnorm": "rmsnorm_kernel",
+                      "rmsnorm": ("rmsnorm_kernel", "rmsnorm_vec_kernel"),
                       "flash_attention": "flash_kernel"}
 
 #: ptxas and SASS labels of the library's kernels, by symbol; the bf16
@@ -1764,7 +1805,8 @@ STANDALONE_KERNELS = (("matmul_kernel_wgmma", "matmul bf16 wgmma", "bf16"),
                        "bf16"),
                       ("flash_kernel_ffma", "flash_attention f32 ffma",
                        "f32"),
-                      ("rmsnorm_kernel", "rmsnorm", None))
+                      ("rmsnorm_kernel", "rmsnorm scalar", None),
+                      ("rmsnorm_vec_kernel", "rmsnorm vector", None))
 
 STANDALONE_REPLACES = {"matmul": "src/repro/kernels/matmul.py:48",
                        "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
@@ -1774,12 +1816,12 @@ STANDALONE_REPLACES = {"matmul": "src/repro/kernels/matmul.py:48",
 
 def _standalone_label(line):
     """"matmul bf16 wgmma BN=192", "flash_attention f32 ffma HD=256",
-    "rmsnorm bf16", ... for a ptxas or cuobjdump line that names one of
+    "rmsnorm vector bf16", ... for a ptxas or cuobjdump line that names one of
     the standalone kernels, else None."""
     for sym, label, _kind in STANDALONE_KERNELS:
         if sym in line:
             rest = line.split(sym, 1)[1]
-            if sym == "rmsnorm_kernel":
+            if sym.startswith("rmsnorm"):
                 label += (" bf16" if rest.startswith("I13__nv_bfloat16")
                           else " f32")
             width = re.match(r"ILi(\d+)E", rest)
@@ -1846,6 +1888,25 @@ def _standalone_inputs(name, dims, gen):
     return rnd(*dims), rnd(*dims), rnd(*dims)
 
 
+def _layout(x, layout):
+    """``x`` copied into the layout a phase-4 case names: "strided" (the
+    even columns of a tensor twice as wide) or "unaligned" (a view that
+    starts one element past a 16-byte boundary); ``x`` itself for None."""
+    if layout is None:
+        return x
+    rows, d = x.shape
+    if layout == "strided":
+        wide = x.new_zeros((rows, 2 * d))
+        wide[:, ::2] = x
+        return wide[:, ::2]
+    if layout == "unaligned":
+        flat = x.new_zeros((rows * d + 1,))
+        view = flat[1:].view(rows, d)
+        view.copy_(x)
+        return view
+    raise ValueError(f"no layout {layout!r}")
+
+
 def _standalone_launches(name, dims, dtype):
     """CUDA kernels one call launches: 2 for an f32 matmul whose K the
     plan splits (the GEMM, then the sum of its partial tiles), else 1."""
@@ -1898,9 +1959,12 @@ def phase_standalone():
     runs = []
     for name, label, dims, kw in STANDALONE_CASES:
         x32 = _standalone_inputs(name, dims, gen)
+        layout = kw.get("layout")
+        kw = {k: v for k, v in kw.items() if k != "layout"}
         for dt in (torch.float32, torch.bfloat16):
+            xs = tuple(t.to(dt) for t in x32)
             runs.append((name, label, dims, kw, dt,
-                         tuple(t.to(dt) for t in x32)))
+                         (_layout(xs[0], layout),) + xs[1:]))
     sk.reset_launch_counts()
     outs = [getattr(sk, name)(*xs, **kw)
             for name, label, dims, kw, dt, xs in runs]
@@ -2032,7 +2096,11 @@ def main() -> int:
     kc = timed("phase 3c", phase_serve,
                dataclasses.replace(mamba, n_layers=MAMBA_SERVED_LAYERS),
                w_max, "3c")
-    qwen, music = get_config("qwen2-vl-2b"), get_config("musicgen-large")
+    qwen = get_config("qwen2-vl-2b")
+    # served cut to MUSICGEN_SERVED_LAYERS of its 48 layers, for the time
+    # limit
+    music = dataclasses.replace(get_config("musicgen-large"),
+                                n_layers=MUSICGEN_SERVED_LAYERS)
     err2e = timed("phase 2e", phase_workers, qwen, w_max, "2e")
     ke = timed("phase 3e", phase_serve, qwen, w_max, "3e")
     kf = timed("phase 3f", phase_serve, music, w_max, "3f")

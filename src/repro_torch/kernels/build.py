@@ -18,7 +18,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 __all__ = ["SOURCE", "build_library", "load_library", "placement",
-           "dtype_code", "tma_ready", "sm_count", "launch", "launch_counts",
+           "dtype_code", "tma_ready", "sm_count", "launch", "bound",
+           "raise_launch_error", "count_launch", "launch_counts",
            "reset_launch_counts"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "standalone.cu"
@@ -48,8 +49,8 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.sk_matmul.argtypes = [P] * 4 + [I64] * 7 + [I32] * 4 + [P]
-        lib.sk_rmsnorm.argtypes = ([P, P, P] + [I64] * 5
-                                   + [ctypes.c_float, I32, P])
+        # two ctypes arrays, passed as pointers without a conversion
+        lib.sk_rmsnorm.argtypes = None
         lib.sk_flash_attention.argtypes = ([P] * 4 + [I64] * 16
                                            + [I32, ctypes.c_float, I32, P])
         for fn in (lib.sk_matmul, lib.sk_rmsnorm, lib.sk_flash_attention):
@@ -107,15 +108,31 @@ def sm_count(device: torch.device) -> int:
     return _SMS[idx]
 
 
+def bound(name: str) -> Callable[..., int]:
+    """The C entry point ``sk_<name>`` with its signature set (the library
+    is built and loaded at the first call)."""
+    fn = _ENTRY.get(name)
+    if fn is None:
+        load_library()
+        fn = _ENTRY[name]
+    return fn
+
+
+def raise_launch_error(name: str, err: int) -> None:
+    raise RuntimeError(f"{name} launch failed: "
+                       + _LIB.sk_error_string(err).decode())
+
+
+def count_launch(name: str, kernels: int = 1) -> None:
+    _LAUNCHES[name] += kernels
+
+
 def launch(name: str, device: torch.device, *args,
            kernels: int = 1) -> None:
     """Call ``sk_<name>(*args, stream)`` on ``device``'s current stream and
     count the ``kernels`` CUDA kernels it launches there; a launch the card
     refuses raises and is not counted."""
-    fn = _ENTRY.get(name)
-    if fn is None:
-        load_library()
-        fn = _ENTRY[name]
+    fn = bound(name)
     cur = torch.cuda.current_device()
     idx = cur if device.index is None else device.index
     if idx == cur:          # no device switch around the call
@@ -124,9 +141,8 @@ def launch(name: str, device: torch.device, *args,
         with torch.cuda.device(idx):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           + _LIB.sk_error_string(err).decode())
-    _LAUNCHES[name] += kernels
+        raise_launch_error(name, err)
+    count_launch(name, kernels)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -77,7 +77,7 @@ def load_library() -> ctypes.CDLL:
         P, I64 = ctypes.c_void_p, ctypes.c_longlong
         lib.mk_launch.argtypes = ([P, P] + [I64] * 11
                                   + [ctypes.c_double, I64, I64, I64, P]
-                                  + [I64] * 13 + [P, P] + [I64] * 3)
+                                  + [I64] * 13 + [P, P] + [I64] * 3 + [P])
         lib.mk_launch.restype = ctypes.c_int
         lib.mk_max_workers.argtypes = [I64, I64]
         lib.mk_max_workers.restype = I64

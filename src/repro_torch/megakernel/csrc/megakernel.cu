@@ -21,30 +21,50 @@
 //
 // Design: one CTA of 512 threads per worker, all W CTAs resident at once
 // (a cooperative launch, which refuses a grid that cannot be).  Under the
-// static scheduler CTA w walks the descriptor rows s * W + w in order
-// (the dynamic scheduler is below); each kind is a __device__
-// function selected by a switch on word 0, with __syncthreads() between
-// tasks so that a task's heap stores are visible to the CTA's next task,
-// and the next descriptor row is fetched while the current task runs.
+// static scheduler CTA w runs the rows of its walk list in order: the
+// grid slots s * W + w that are not pads (the plan's port-only side table
+// `walk`, desc.walk_lists: W + 1 offsets, then each lane's slots).  A pad
+// (kind 0, no wait, no signal) does nothing, so a worker skips it whole;
+// at full width most slots are pads (granite: 96 % of them), and each
+// cost three barriers and an exposed row fetch when the walk visited
+// them.  Without the lists, or with the trace ring on, the CTA walks
+// every slot of its column (see the ring below).  The dynamic scheduler
+// is below.  Each kind is a __device__ function selected by a switch on
+// word 0.  The rows are staged ahead: warp 0 copies row i + RING - 1 of
+// the walk into a ring of RING rows in shared memory with 16-byte
+// cp.async (one commit group a row) while row i runs, so that a short
+// task (rope, resid, cache_update: under a microsecond) finds the next
+// row in place; its turn come, each lane copies its part into the
+// running row, whose address is fixed (static_loop says why).  Two
+// barriers a task: one after thread 0's wait, which also publishes the
+// running row (cp.async.wait_group, the copy, then __syncwarp for thread
+// 0), and one after the task's stores.  A noop
+// row that waits or signals (a join of the event graph: granite's
+// busiest worker runs 1,919 of them and 2 tasks) has no task, so warp 0
+// runs it alone, thread 0 waiting and signalling, and the other warps
+// wait at the next task row's barrier.
 // Offsets are int64: a full-width heap holds 11.85 G words.
 //
 // Across CTAs, tasks synchronise through the event counters in the heap
 // (descriptor words 32-34), whatever the row's kind, noops included:
 //   wait   (word 32 >= 0): before the task's first load, thread 0 spins
-//          with acquire loads until the counter reaches the trigger count
-//          (word 33), bounded by a %globaltimer deadline past which the
-//          fault goes into the worker's counter block and the kernel
-//          traps; then __syncthreads();
+//          with ld.acquire.gpu until the counter reaches the trigger
+//          count (word 33), bounded by a %globaltimer deadline past which
+//          the fault goes into the worker's counter block and the kernel
+//          traps; then __syncthreads() (no fence: wait_event says why);
 //   signal (word 34 >= 0): after the task's stores, __syncthreads(), then
-//          thread 0 fences and adds 1 to the counter atomically.
+//          thread 0's red.release.gpu adds 1 to the counter.
 // Every load of data another CTA may write in the launch is a plain
 // coherent load; only the matmul's weights (written by no task) go
 // through the non-coherent path.  The trace ring, when on, takes one
 // tick (an atomicAdd on the counter at the ring's head) after the wait
 // and one after the stores, before the signal, so that a waiter's start
 // always follows its signallers' ends, and writes one 8-word record per
-// slot.  Every primary tile is read on demand through the descriptor's
-// addresses (words 28-30 describe the same tile); the prefetch plan
+// slot.  The ring has a record for every grid slot, pads included, so a
+// traced launch walks the whole grid (the wrapper passes no lists): its
+// records, ticks and order are the full walk's, and a traced run stays
+// a correctness run of everything but the compaction.  Every primary
+// tile is read on demand through the descriptor's addresses (words 28-30 describe the same tile); the prefetch plan
 // (words 24-27) is read and ignored: it assumes that workers stay within
 // one step of each other, which the card does not give.  Stores write
 // only the valid columns, rounded up to STORE_CH chunks and capped at TN,
@@ -155,8 +175,8 @@
 // and restore the words past the window, only the window is read and
 // written: on the card other lanes may store the neighbouring words at
 // the same time.  Ordering: a send's stores are released by the
-// signal's __syncthreads() (every thread's stores) and thread 0's fence
-// before its add; a receive waits on word 32 with the acquire spin.  A
+// signal's __syncthreads() (every thread's stores) and thread 0's
+// release add; a receive waits on word 32 with the acquire spin.  A
 // (chip, phase) staging buffer holds one chunk and the C - 1 rounds of
 // a phase reuse it, so the chips may not run more than one round apart:
 // each arrival adds one to a port-only counter after its reads (the
@@ -188,7 +208,12 @@ constexpr int VEC = 4;             // floats per weight load (float4)
 constexpr int HPL = 8;             // attention head elements per lane
 constexpr int DESC_WORDS = 36;
 constexpr int STATS_WORDS = 12;
-constexpr int HEAD_BYTES = 384;    // descriptor row + reduction words
+constexpr int RING = 4;            // descriptor rows staged ahead (static)
+constexpr int ROW_BYTES = DESC_WORDS * 8;
+constexpr int ROW_CHUNKS = ROW_BYTES / 16;   // 16-byte copies a row
+constexpr int SCAL_BYTES = 96;     // block-reduction words
+// the running descriptor row, the ring of staged rows, the reduction words
+constexpr int HEAD_BYTES = (RING + 1) * ROW_BYTES + SCAL_BYTES;
 constexpr int TRACE_HEADER = 8;
 constexpr int TRACE_WORDS = 8;
 constexpr long long ROW_SPILL = 1LL << 20;
@@ -236,11 +261,12 @@ struct Statics {
   long long mrope[3];
 };
 
-// Dynamic shared memory: [descriptor row | block-reduction words]
-// [matmul partial sums: RP * NT * VEC] [matmul x rows: RP * TK, which
-// doubles as the attention merge scratch].
+// Dynamic shared memory: [the running descriptor row | RING staged rows
+// (static) | block-reduction words] [matmul partial sums: RP * NT * VEC]
+// [matmul x rows: RP * TK, which doubles as the attention merge scratch].
 struct Smem {
   long long* d;
+  long long* ring;
   float* scal;
   float* red;
   float* x;
@@ -286,6 +312,31 @@ __device__ __forceinline__ float ld_relaxed(const float* p) {
   asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
                : "=r"(v) : "l"(p) : "memory");
   return __uint_as_float(v);
+}
+
+// Add `v` to a counter with release semantics at GPU scope (thread 0,
+// after the CTA's barrier): the signal of an event or an arrival.
+__device__ __forceinline__ void red_release(float* p, float v) {
+  asm volatile("red.release.gpu.global.add.f32 [%0], %1;"
+               :: "l"(p), "f"(v) : "memory");
+}
+
+// One 16-byte copy from global to shared memory that completes
+// asynchronously (through L2 only), its commit group, and the wait until
+// at most N of the calling thread's groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ bool cas_word(float* p, float expect,
@@ -998,6 +1049,21 @@ struct Counts {
 // past its trigger count is a violation; under the dynamic one the count
 // must already be there, since a consumer is pushed only once its event
 // fully triggered.
+//
+// No fence follows the spin: the caller's __syncthreads() does, or for a
+// noop row thread 0's own release (cumulative).  In the PTX memory model each producer's stores precede its thread 0's release
+// add in causality order (program order, then the producer's barrier,
+// which synchronises its threads at CTA scope).  The counter's adds are
+// morally strong read-modify-writes at GPU scope, so the value this
+// acquire load reads is observed through the chain of every earlier add,
+// and each producer's release synchronises with the acquire.  The
+// consumer's barrier orders the acquire before its threads' loads, and
+// causality order is transitive, so every producer's stores precede
+// those loads: they read the values stored or later ones.  The same
+// pattern (barrier, thread 0's release; thread 0's acquire, barrier) is
+// CUTLASS's inter-CTA semaphore.  The __threadfence() (fence.sc) that
+// followed the spin, with the one before each signal's atomicAdd, made
+// granite's walk about 1 ms slower on an H100 (tools/walk_variants.py).
 __device__ __forceinline__ void wait_event(float* heap, const Statics& S,
                                            long long w, long long row,
                                            long long ev, long long cnt,
@@ -1014,7 +1080,6 @@ __device__ __forceinline__ void wait_event(float* heap, const Statics& S,
       __nanosleep(32);
     }
   }
-  __threadfence();
   ++c.waits;
   if (S.dyn ? early : seen > want) ++c.violations;
 }
@@ -1066,7 +1131,9 @@ __device__ __forceinline__ void run_task(long long kind, float* heap,
 // Thread 0, before a ring send of round r >= 1: spin with acquire loads
 // until the receiver's arrival counter `p` reaches `want` (its staging
 // buffer is free again), under the event wait's deadline (a fault shows
-// event -1).  Not counted as an event wait.
+// event -1).  Not counted as an event wait.  Ordered as an event wait is
+// (wait_event): the receiver's reads precede its release add, the
+// caller's barrier follows this acquire.
 __device__ __noinline__ void wait_ack(float* heap, const Statics& S,
                                       long long w, long long row,
                                       const float* p, long long want) {
@@ -1080,7 +1147,6 @@ __device__ __noinline__ void wait_ack(float* heap, const Statics& S,
       __nanosleep(32);
     }
   }
-  __threadfence();
 }
 
 // Thread 0: the trace record of one task.
@@ -1101,16 +1167,42 @@ __device__ __forceinline__ void write_record(float* heap, const Statics& S,
   rec[7] = 0.0f;
 }
 
-// The tile transfers of `n` descriptor rows (row i at descs + (first + i
-// * stride) * DESC_WORDS), counted by the whole CTA after its tasks and
-// summed into thread 0's counters.
-__device__ void count_rows(const long long* descs, long long first,
-                           long long stride, long long n, const float* heap,
-                           const Statics& S, const Smem& sm, Counts& c) {
+// The rows a static worker runs: the n entries of its walk list, or the
+// n = num_steps slots i * W + w of its grid column when list is null.
+struct Walk {
+  const long long* list;
+  long long n, w, W;
+
+  __device__ __forceinline__ long long slot(long long i) const {
+    return list != nullptr ? list[i] : i * W + w;
+  }
+};
+
+// Warp 0: stage row i of the walk into ring slot i % RING, one 16-byte
+// cp.async by each of lanes 0-17 (the lane that later copies that part
+// into the running row); every lane commits one group a call (empty past
+// the walk's end), so that a wait on the group count is a wait on rows.
+__device__ __forceinline__ void stage_row(const long long* descs,
+                                          const Walk& wk, long long i,
+                                          long long* ring) {
+  const int lane = threadIdx.x;
+  if (i < wk.n && lane < ROW_CHUNKS)
+    cp_async16(ring + (i & (RING - 1)) * DESC_WORDS + 2 * lane,
+               descs + wk.slot(i) * DESC_WORDS + 2 * lane);
+  cp_async_commit();
+}
+
+// The tile transfers of the worker's rows, counted by the whole CTA after
+// its tasks and summed into thread 0's counters.  The rows a walk list
+// leaves out are pads, which count nothing, so the counts are the whole
+// grid column's.
+__device__ void count_rows(const long long* descs, const Walk& wk,
+                           const float* heap, const Statics& S,
+                           const Smem& sm, Counts& c) {
   Counts mine;
   mine.zero();
-  for (long long i = threadIdx.x; i < n; i += NT)
-    mine.task(descs + (first + i * stride) * DESC_WORDS, heap, S);
+  for (long long i = threadIdx.x; i < wk.n; i += NT)
+    mine.task(descs + wk.slot(i) * DESC_WORDS, heap, S);
   long long v[3] = {mine.bulk, mine.rows, mine.fallbacks};
   long long* part = reinterpret_cast<long long*>(sm.red);
   __syncthreads();                      // sm.red is free
@@ -1130,67 +1222,103 @@ __device__ void count_rows(const long long* descs, long long first,
     }
 }
 
-// Static scheduler: CTA w walks the grid rows s * W + w in order.
+// Thread 0: a noop row of the static walk, run by warp 0 alone (no task,
+// so no barrier): the wait, the trace record, the signal.  The signal's
+// release is cumulative, so it passes on what the wait acquired.
+__device__ __forceinline__ void run_noop(float* heap, const Statics& S,
+                                         const Walk& wk, long long i,
+                                         const long long* d, Counts& c) {
+  const long long row = wk.slot(i);
+  if (d[32] >= 0) wait_event(heap, S, wk.w, row, d[32], d[33], c);
+  if (S.tr_off >= 0) {
+    const float t_start = atomicAdd(heap + S.tr_off, 1.0f);
+    write_record(heap, S, row, wk.w, row, 0, t_start,
+                 atomicAdd(heap + S.tr_off, 1.0f), -1.0f, d[32], d[33]);
+  }
+  if (d[34] >= 0) {
+    red_release(heap + S.event_off + d[34], 1.0f);
+    ++c.signals;
+  }
+}
+
+// Static scheduler: CTA w runs the rows of its walk in order, each staged
+// RING - 1 rows ahead by warp 0 and copied into the running row (sm.d)
+// when its turn comes.  The running row has a fixed address: read
+// through the ring's moving slot, the tasks' code lost the proof that its
+// shared-memory stores leave the row alone, and deepseek-7b's and
+// qwen2-vl's matmuls ran 4-13 % slower on an H100.  Warp 0 runs the noop
+// rows (the joins that only wait and signal) on its own, up to the next
+// task row; the other warps wait at that row's barrier.
 template <int EXT>
 __device__ void static_loop(float* heap, const long long* __restrict__ descs,
-                            long long num_steps, long long num_workers,
-                            const Statics& S, const Smem& sm, long long w,
+                            const Walk& wk, const Statics& S, const Smem& sm,
                             Counts& c) {
-  const long long* row0 = descs + w * DESC_WORDS;
-  const long long stride = num_workers * DESC_WORDS;
-  if (threadIdx.x < DESC_WORDS && num_steps > 0)
-    sm.d[threadIdx.x] = row0[threadIdx.x];
-  for (long long s = 0; s < num_steps; ++s) {
-    __syncthreads();                    // this task's row is in sm.d
-    // fetch the next row now; it lands in sm.d after this task
-    long long next = 0;
-    if (threadIdx.x < DESC_WORDS && s + 1 < num_steps)
-      next = row0[(s + 1) * stride + threadIdx.x];
-    const long long* d = sm.d;
-    // thread 0 keeps the words it needs after sm.d is overwritten
-    const long long kind = d[0];
-    const long long wait_ev = d[32], wait_cnt = d[33], sig_ev = d[34];
-    const long long row = s * num_workers + w;
+  __shared__ long long s_task;          // the next task row (wk.n: none)
+  long long* d = sm.d;
+  long long i = 0;                      // warp 0's next row
+  if (threadIdx.x < 32)
+    for (int k = 0; k < RING - 1; ++k) stage_row(descs, wk, k, sm.ring);
+  for (;;) {
+    long long row = 0;                  // thread 0's
     float t_start = 0.0f;
-    if (threadIdx.x == 0) {
-      if (wait_ev >= 0) wait_event(heap, S, w, row, wait_ev, wait_cnt, c);
-      if constexpr (EXT == 3) {
-        if (kind == 14 || kind == 15) {
-          // a send waits until the receiver's buffer is free again
-          if (kind == 14 && S.acks != nullptr && S.acks[2 * row] >= 0)
-            wait_ack(heap, S, w, row, heap + S.acks[2 * row],
-                     S.acks[2 * row + 1]);
-          if (d[3] > 0) {               // the reference's span-op blocks
-            c.bulk += 1;
-            c.rows += 3 * ((d[3] + 255) / 256) * d[1];
+    if (threadIdx.x < 32) {
+      for (;; ++i) {                    // the noop rows before the task
+        __syncwarp();                   // thread 0 is done with row i - 1
+        // into the slot row i - 1 left
+        stage_row(descs, wk, i + RING - 1, sm.ring);
+        if (i >= wk.n) break;
+        cp_async_wait<RING - 1>();      // this lane's part of row i landed
+        if (threadIdx.x < ROW_CHUNKS)
+          reinterpret_cast<uint4*>(d)[threadIdx.x] =
+              reinterpret_cast<const uint4*>(
+                  sm.ring + (i & (RING - 1)) * DESC_WORDS)[threadIdx.x];
+        __syncwarp();                   // every lane's, for every lane
+        if (d[0] != 0) break;
+        if (threadIdx.x == 0) run_noop(heap, S, wk, i, d, c);
+      }
+      if (threadIdx.x == 0) {
+        s_task = i;
+        if (i < wk.n) {
+          row = wk.slot(i);
+          if (d[32] >= 0) wait_event(heap, S, wk.w, row, d[32], d[33], c);
+          if constexpr (EXT == 3) {
+            const long long kind = d[0];
+            if (kind == 14 || kind == 15) {
+              // a send waits until the receiver's buffer is free again
+              if (kind == 14 && S.acks != nullptr && S.acks[2 * row] >= 0)
+                wait_ack(heap, S, wk.w, row, heap + S.acks[2 * row],
+                         S.acks[2 * row + 1]);
+              if (d[3] > 0) {           // the reference's span-op blocks
+                c.bulk += 1;
+                c.rows += 3 * ((d[3] + 255) / 256) * d[1];
+              }
+            }
           }
+          if (S.tr_off >= 0) t_start = atomicAdd(heap + S.tr_off, 1.0f);
         }
       }
-      if (S.tr_off >= 0) t_start = atomicAdd(heap + S.tr_off, 1.0f);
     }
-    __syncthreads();                    // the wait held
-    run_task<EXT>(kind, heap, d, S, sm);
+    __syncthreads();                    // the task row is in place; the
+    if (s_task >= wk.n) break;          // wait held
+    run_task<EXT>(d[0], heap, d, S, sm);
     __syncthreads();                    // the task's stores landed
-    if (threadIdx.x < DESC_WORDS) sm.d[threadIdx.x] = next;
     if (threadIdx.x == 0) {
       if constexpr (EXT == 3) {         // an arrival's reads are done
-        if (kind == 15 && S.acks != nullptr && S.acks[2 * row] >= 0) {
-          __threadfence();
-          atomicAdd(heap + S.acks[2 * row], 1.0f);
-        }
+        if (d[0] == 15 && S.acks != nullptr && S.acks[2 * row] >= 0)
+          red_release(heap + S.acks[2 * row], 1.0f);
       }
       if (S.tr_off >= 0)
-        write_record(heap, S, row, w, row, kind, t_start,
-                     atomicAdd(heap + S.tr_off, 1.0f), -1.0f, wait_ev,
-                     wait_cnt);
-      if (sig_ev >= 0) {                // release this task's stores
-        __threadfence();
-        atomicAdd(heap + S.event_off + sig_ev, 1.0f);
+        write_record(heap, S, row, wk.w, row, d[0], t_start,
+                     atomicAdd(heap + S.tr_off, 1.0f), -1.0f, d[32], d[33]);
+      if (d[34] >= 0) {                 // release this task's stores
+        red_release(heap + S.event_off + d[34], 1.0f);
         ++c.signals;
       }
     }
+    ++i;
   }
-  count_rows(descs, w, num_workers, num_steps, heap, S, sm, c);
+  if (threadIdx.x < 32) cp_async_wait<0>();   // only empty groups remain
+  count_rows(descs, wk, heap, S, sm, c);
 }
 
 // Pop with the calling warp from `words` words of ready-pool slots (a
@@ -1408,10 +1536,12 @@ __device__ void dyn_loop(float* heap, const long long* __restrict__ descs,
 template <bool DYN, int EXT>
 __global__ void __launch_bounds__(NT)
 megakernel(float* heap, const long long* __restrict__ descs,
-           long long num_steps, long long num_workers, Statics S) {
+           long long num_steps, long long num_workers,
+           const long long* __restrict__ walk, Statics S) {
   Smem sm;
   sm.d = reinterpret_cast<long long*>(smem_raw);
-  sm.scal = reinterpret_cast<float*>(smem_raw + DESC_WORDS * 8);
+  sm.ring = reinterpret_cast<long long*>(smem_raw + ROW_BYTES);
+  sm.scal = reinterpret_cast<float*>(smem_raw + (RING + 1) * ROW_BYTES);
   sm.red = reinterpret_cast<float*>(smem_raw + HEAD_BYTES);
   sm.x = sm.red + RP * NT * VEC;
   const long long w = blockIdx.x;
@@ -1426,7 +1556,10 @@ megakernel(float* heap, const long long* __restrict__ descs,
   } else {
     Counts c;                           // thread 0's
     c.zero();
-    static_loop<EXT>(heap, descs, num_steps, num_workers, S, sm, w, c);
+    const Walk wk{walk != nullptr ? walk + num_workers + 1 + walk[w] : nullptr,
+                  walk != nullptr ? walk[w + 1] - walk[w] : num_steps, w,
+                  num_workers};
+    static_loop<EXT>(heap, descs, wk, S, sm, c);
     if (threadIdx.x == 0) c.store(heap, S, w);
   }
 }
@@ -1506,8 +1639,11 @@ extern "C" long long mk_max_workers(long long tk, long long hd) {
 // `nh_tile` and `w_conv` shape the Mamba2 kinds (12-13); `acks` is a
 // multichip plan's (rows, 2) side table (null otherwise).  `mrope0-2`
 // are the M-RoPE sections (0, 0, 0 without), after `stream` so that the
-// earlier arguments keep their places.  Returns the CUDA error of the
-// launch (0 on success).
+// earlier arguments keep their places.  `walk` is a static plan's walk
+// lists (W + 1 offsets, then each lane's non-pad slots in step order;
+// null: every CTA walks its whole grid column), last for the same reason.
+// `descs` must be 16-byte aligned (its rows are staged by cp.async).
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int mk_launch(float* heap, const long long* descs,
                          long long num_steps, long long num_workers,
                          long long tn, long long tk, long long hd,
@@ -1524,7 +1660,7 @@ extern "C" int mk_launch(float* heap, const long long* descs,
                          long long nh_tile, long long w_conv,
                          const long long* acks, void* stream,
                          long long mrope0, long long mrope1,
-                         long long mrope2) {
+                         long long mrope2, const long long* walk) {
   const int tkc = static_cast<int>(tk < 8 ? 8 : (tk > 128 ? 128 : tk));
   const int ts = static_cast<int>(s_max < 128 ? s_max : 128);
   Statics S{tn, tk, hd, g, store_ch, stats_off, event_off, tr_off, spin_ns,
@@ -1541,7 +1677,8 @@ extern "C" int mk_launch(float* heap, const long long* descs,
   const long long resident = resident_ctas(kernel, smem, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_workers < 1 || num_workers > resident) return ERR_NOT_RESIDENT;
-  void* args[] = {&heap, &descs, &num_steps, &num_workers, &S};
+  if (dyn != 0) walk = nullptr;
+  void* args[] = {&heap, &descs, &num_steps, &num_workers, &walk, &S};
   err = cudaLaunchCooperativeKernel(
       kernel,
       dim3(static_cast<unsigned>(num_workers)), dim3(NT), args, smem,

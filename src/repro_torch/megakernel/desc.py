@@ -31,7 +31,12 @@ What differs from the reference:
   safe.  On the card, where a chip's worker may run ahead of its peer's,
   a send of round ``r >= 1`` first waits until the receiver's counter
   shows its ``r`` earlier arrivals done.  The descriptor table itself is
-  the reference's.
+  the reference's;
+* a static plan carries a port-only side table of walk lists
+  (``MegakernelPlan.walk``, built by ``walk_lists``): per worker lane the
+  grid slots that are not pads, in step order, so that the CUDA kernel's
+  worker visits only its real rows.  A pad (kind 0 with neither a wait
+  nor a signal) does nothing, so skipping it changes no word of the heap.
 
 Descriptor words (per kind, see ``lower_tgraph``):
    0 kind   1 m      2 n      3 k      4 out_off 5 ldo
@@ -96,8 +101,8 @@ from ..core.graph import OpKind
 __all__ = ["KIND_CODES", "DESC_WORDS", "STATS_WORDS", "TRACE_WORDS",
            "TRACE_HEADER", "CTL_WORDS", "PER_STEP_INPUTS", "TensorSlot",
            "MegakernelPlan", "lower_tgraph", "dynamic_tail",
-           "stamp_multichip", "refuse_remote_dma", "REMOTE_COPY_CODE",
-           "AR_CHUNK_CODE"]
+           "stamp_multichip", "refuse_remote_dma", "walk_lists",
+           "REMOTE_COPY_CODE", "AR_CHUNK_CODE"]
 
 #: graph inputs that change every decode step — everything else in the heap
 #: (weights, caches) is uploaded once and lives on the device
@@ -234,6 +239,7 @@ class MegakernelPlan:
     n_chips: int = 1                  # chips of a stamped plan
     chip_stride: int = 0              # words per chip region (0: one chip)
     acks: Optional[np.ndarray] = None  # (rows, 2) port-only send guards
+    walk: Optional[np.ndarray] = None  # port-only walk lists (walk_lists)
 
     @property
     def dynamic(self) -> bool:
@@ -756,7 +762,23 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
         statics.update({"TRACE": 1, "TR_OFF": ring_offset})
     return MegakernelPlan(compiled, grid, layout, heap_size, statics,
                           stats_offset, W, num_steps, event_offset,
-                          num_events, trace, ring_offset)
+                          num_events, trace, ring_offset,
+                          walk=walk_lists(grid, W))
+
+
+def walk_lists(grid: np.ndarray, W: int) -> np.ndarray:
+    """The walk lists of a static ``(num_steps * W, DESC_WORDS)`` grid as
+    one int64 CSR: ``W + 1`` offsets, then for each lane ``w`` in turn the
+    grid slots ``s * W + w`` that are not pads, in step order.  A pad is
+    a noop (kind 0) that neither waits nor signals (words 32 and 34 both
+    -1); a noop with an event word stays in its lane's list."""
+    real = (grid[:, 0] != 0) | (grid[:, 32] >= 0) | (grid[:, 34] >= 0)
+    slots = np.flatnonzero(real)
+    lanes = slots % W
+    offsets = np.zeros(W + 1, np.int64)
+    np.cumsum(np.bincount(lanes, minlength=W), out=offsets[1:])
+    return np.concatenate([offsets, slots[np.argsort(lanes, kind="stable")]]
+                          ).astype(np.int64)
 
 
 def _lower_dynamic(compiled: CompiledTGraph, descs: np.ndarray,
@@ -964,8 +986,8 @@ def stamp_multichip(plan: MegakernelPlan, n_chips: int) -> MegakernelPlan:
     The chips are heap regions of one launch: one card runs the TP
     protocol, its ring steps synchronised by the cross-chip arrival
     events.  Port-only: the arrival counters after the reference's heap
-    and the ``acks`` side table that guards a staging buffer's reuse
-    (module docstring)."""
+    and the ``acks`` side table that guards a staging buffer's reuse, and
+    the walk lists of the ``C · W`` lanes (module docstring)."""
     from ..distributed.comm_tasks import (expand_ring_allreduce,
                                           n_comm_events, n_ring_steps)
     if plan.dynamic:
@@ -1091,4 +1113,5 @@ def stamp_multichip(plan: MegakernelPlan, n_chips: int) -> MegakernelPlan:
                           statics, stats_off, Wt, S, event_off,
                           C * nev0 + n_comm_ev, plan.trace, ring_off,
                           ctl_offset=ctl_offset, n_chips=C,
-                          chip_stride=chip_stride, acks=acks)
+                          chip_stride=chip_stride, acks=acks,
+                          walk=walk_lists(grid, Wt))

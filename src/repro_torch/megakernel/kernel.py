@@ -20,18 +20,24 @@ all-reduce chunk), with its event counters and trace ring.  A
 multichip plan runs over the fused transport (its chips are regions of
 the one heap) under the static scheduler; ``acks`` is then its
 port-only side table (``desc.stamp_multichip``).  A plan that asks for
-the remote-copy transport (``REMOTE_DMA``) is refused.
+the remote-copy transport (``REMOTE_DMA``) is refused.  Under the static
+scheduler ``walk`` (``plan.walk``, ``desc.walk_lists``) lists each
+worker's real rows: the kernel's CTA ``w`` then runs only those, in step
+order, and skips the pads, which do nothing.  Without it, or with the
+trace ring on (whose records cover every grid slot), each CTA walks every
+slot of its grid column.
 
 ``megakernel_plain`` is a Python loop over the reference's grid slots,
 step-major and worker-fastest, that runs each kind with torch ops on
 views of the heap.  Under the static scheduler slot ``s * W + w`` runs
 grid row ``s * W + w``; the partition makes that order legal, since
-every dependency crosses a step.  Under the dynamic scheduler slot
-``s * W + w`` pops for worker ``w`` as the reference's interpret grid
-does (own pool, then overflow, then the first non-empty victim in
-``(w + k) % W`` order; the minimum row id; first-empty pushes that
-spill to overflow), so its heap after a step equals the reference's in
-every integer word.  It computes what the kernel computes (same tiles,
+every dependency crosses a step.  With ``walk`` (and the ring off) it
+visits only the slots the lists name, in the same order.  Under the
+dynamic scheduler slot ``s * W + w`` pops for worker ``w`` as the
+reference's interpret grid does (own pool, then overflow, then the first
+non-empty victim in ``(w + k) % W`` order; the minimum row id;
+first-empty pushes that spill to overflow), so its heap after a step
+equals the reference's in every integer word.  It computes what the kernel computes (same tiles,
 same masked store widths, same counters, the same trace records) on any
 device, and handles the event words as the reference's interpret mode
 does: a waited counter must already equal its trigger count, or the wait
@@ -60,10 +66,11 @@ __all__ = ["megakernel", "megakernel_plain", "launch_count",
 #: groups per matmul thread (the widest matmul or expert tile; the other
 #: kinds loop over any width), 8 head elements per lane in attention, and
 #: the two staged rows of x (2 · TK words) beside the K-slice partial
-#: sums (16 KB) in the H100's 227 KB of shared memory
+#: sums (16 KB) and the staged and running descriptor rows (1536 bytes with
+#: the reduction words) in the H100's 227 KB of shared memory
 MAX_TN = 4096
 MAX_HD = 256
-MAX_TK = 26880
+MAX_TK = 26752
 
 #: M-RoPE sections the kernel takes (temporal, height, width)
 MAX_MROPE = 3
@@ -226,7 +233,8 @@ def check_workers(statics: Mapping[str, Any], device=None) -> None:
 def megakernel(heap: torch.Tensor, descs: torch.Tensor,
                statics: Mapping[str, Any],
                sched: Optional[torch.Tensor] = None,
-               acks: Optional[torch.Tensor] = None) -> None:
+               acks: Optional[torch.Tensor] = None,
+               walk: Optional[torch.Tensor] = None) -> None:
     """One decode step: run the descriptor table ``descs`` ((rows, 36)
     int64, on the heap's device) against ``heap`` (flat float32) in
     place.  The event counters and the tick must be zero, and under the
@@ -237,7 +245,10 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
     ``check_plan``; a W that cannot be resident at once is refused before
     anything runs.  A multichip plan takes its ``acks``: a contiguous
     (rows, 2) int64 tensor on the heap's device; one that asks for the
-    remote-copy transport between cards (``REMOTE_DMA``) is refused."""
+    remote-copy transport between cards (``REMOTE_DMA``) is refused.  A
+    static plan may take its ``walk`` lists (a contiguous 1-D int64
+    tensor on the heap's device, ``W + 1`` offsets then the slots); they
+    are not used while the trace ring is on."""
     global _LAUNCHES
     refuse_remote_dma(statics)
     dyn = bool(statics.get("DYN"))
@@ -247,6 +258,15 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
                              or acks.device != heap.device):
         raise ValueError("acks must be a contiguous (rows, 2) int64 tensor "
                          "on the heap's device")
+    if walk is not None and (dyn or walk.dtype != torch.int64
+                             or walk.dim() != 1 or not walk.is_contiguous()
+                             or walk.numel() < statics["W"] + 1
+                             or walk.device != heap.device):
+        raise ValueError("walk must be a static plan's contiguous 1-D int64 "
+                         "lists (W + 1 offsets, then the slots) on the "
+                         "heap's device")
+    if statics.get("TRACE"):
+        walk = None                     # the ring records every grid slot
     if dyn and (sched is None or sched.dtype != torch.int32
                 or sched.dim() != 2 or not sched.is_contiguous()
                 or sched.device != heap.device):
@@ -262,12 +282,15 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
     if descs.device != heap.device:
         raise ValueError("heap and descs must be on one device")
     if heap.device.type == "cpu":
-        megakernel_plain(heap, descs, statics, sched, acks)
+        megakernel_plain(heap, descs, statics, sched, acks, walk)
         return
     if heap.device.type != "cuda":
         raise ValueError(f"no megakernel for device {heap.device}")
     if statics.get("N_CHIPS", 1) > 1 and acks is None:
         raise ValueError("a multichip plan runs with its plan's acks")
+    if descs.data_ptr() % 16:
+        raise ValueError("descs must start on a 16-byte boundary (the "
+                         "kernel stages its rows with 16-byte copies)")
     from .build import load_library
     lib = load_library()
     W = statics["W"]
@@ -296,7 +319,8 @@ def megakernel(heap: torch.Tensor, descs: torch.Tensor,
                             statics.get("NH_TILE", 0),
                             statics.get("W_CONV", 0),
                             acks.data_ptr() if acks is not None else None,
-                            stream, *_mrope(statics))
+                            stream, *_mrope(statics),
+                            walk.data_ptr() if walk is not None else None)
     if err != 0:
         raise RuntimeError("megakernel launch failed: "
                            + lib.mk_error_string(err).decode())
@@ -400,11 +424,14 @@ class _PlainPools:
 
 def megakernel_plain(heap: torch.Tensor, descs,
                      statics: Mapping[str, Any], sched=None,
-                     acks=None) -> None:
+                     acks=None, walk=None) -> None:
     """The kernel's function with torch ops, one grid slot at a time in
     the reference's order (slot ``s * W + w``): the static grid's row
     ``s * W + w``, or under the dynamic scheduler the row that worker
-    ``w`` pops there (``sched``: the plan's scheduler table).
+    ``w`` pops there (``sched``: the plan's scheduler table).  Under the
+    static scheduler with the ring off, ``walk`` (the plan's walk lists)
+    restricts the walk to the slots it lists, in the same order: the
+    compacted walk of the CUDA kernel.
 
     Every store writes the kernel's masked width: the valid columns
     rounded up to ``STORE_CH`` chunks, capped at ``TN`` (the tail chunk
@@ -445,18 +472,23 @@ def megakernel_plain(heap: torch.Tensor, descs,
     tr_off = statics.get("TR_OFF", 0)
     tick = int(heap[tr_off].item()) if trace else 0
     pools = None
-    n_slots = len(rows_list)
+    slots = range(len(rows_list))
     if statics.get("DYN"):
         pools = _PlainPools(heap, statics, rows_list, sched)
-        n_slots = statics["NUM_STEPS"] * W
-    ring = np.zeros((n_slots, TRACE_WORDS), np.float32)
+        slots = range(statics["NUM_STEPS"] * W)
+    elif walk is not None and not trace:
+        lists = (walk.cpu().numpy() if isinstance(walk, torch.Tensor)
+                 else np.asarray(walk))
+        slots = np.sort(lists[W + 1:]).tolist()
+    ring = np.zeros((len(rows_list) if pools is None else len(slots),
+                     TRACE_WORDS), np.float32)
     counts = np.zeros((W, STATS_WORDS), np.int64)
     pops = 0
     guard = (acks.tolist() if isinstance(acks, torch.Tensor)
              else np.asarray(acks).tolist()) if acks is not None else None
     arrived = {}
 
-    for i in range(n_slots):
+    for i in slots:
         w = i % W
         cnt = counts[w]
         row, src = i, -1

@@ -183,6 +183,8 @@ class MegakernelExecutor:
         self._descs = torch.from_numpy(plan.descs).to(self.device)
         self._acks = None if plan.acks is None else \
             torch.from_numpy(plan.acks).to(self.device)
+        self._walk = None if plan.walk is None else \
+            torch.from_numpy(plan.walk).to(self.device)
         self.heap: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------ the heap
@@ -297,11 +299,12 @@ class MegakernelExecutor:
                               torch.from_numpy(flat).to(self.device))
 
     def launch(self) -> None:
-        """One kernel launch over the whole descriptor table; it follows
+        """One kernel launch over the whole descriptor table (a static
+        plan's workers walk their real rows only); it follows
         ``write_step_inputs``, which zeroes the counters it counts up and
         rewrites the queue image."""
         megakernel(self.heap, self._descs, self.plan.statics, self._sched,
-                   self._acks)
+                   self._acks, self._walk)
 
     def step(self, tokens_or_embeds, seq_lens,
              positions=None) -> torch.Tensor:

@@ -189,6 +189,27 @@ def test_cuda_kernel_bitwise_across_workers(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "moe", "ssm", "tp2"])
+def test_cuda_compacted_walk_bitwise_full_walk(cuda, family):
+    """The executor's launch (each worker runs its walk list) against a
+    launch that walks the whole grid, from one heap image: the whole heap
+    (outputs, state, event counters, counter blocks) bitwise equal, for
+    the dense, MoE and SSM families at W = 4 and a TP=2 stamp."""
+    cfg, tp = {"dense": (_cfg(2), 1), "moe": (_moe_cfg(1), 1),
+               "ssm": (_ssm_cfg(1), 1), "tp2": (_cfg(1), 2)}[family]
+    plan = compile_decode_megakernel(cfg, B, S, num_workers=4 // tp, tp=tp)
+    assert plan.walk.size - plan.num_workers - 1 < plan.descs.shape[0]
+    ex = MegakernelExecutor(plan, cfg, cuda)
+    ex.init_weights(torch.Generator(device=cuda).manual_seed(3))
+    ex.write_step_inputs(np.array([3, 7]), np.array([1, 12]))
+    full = ex.heap.clone()
+    ex.launch()
+    megakernel(full, ex._descs, plan.statics, acks=ex._acks)
+    torch.cuda.synchronize()
+    assert torch.equal(ex.heap, full)
+
+
+@pytest.mark.gpu
 def test_workers_that_cannot_be_resident_raise(cuda):
     """A W larger than the CTAs the card can hold at once is refused
     before anything runs: by the executor's check and by the launch."""
@@ -1030,6 +1051,52 @@ def test_cuda_standalone_kernel_ragged_shapes(cuda, name, dims, kw, dtype):
     want = getattr(sk, name + "_plain")(*xs, **kw)
     assert torch.isfinite(got.float()).all()
     _assert_standalone_close(name, got, want)
+
+
+def _rmsnorm_layout(layout, rows, d, dtype):
+    """x (rows, d) and w (d,) of ``dtype`` laid out as ``layout`` says:
+    "contiguous", "strided" (every other column of a wider tensor),
+    "unaligned" (starting one element past a 16-byte boundary) or
+    "row_pad" (rows one element longer than d: a row stride that is no
+    whole number of 16-byte vectors)."""
+    x, w = _standalone_inputs("rmsnorm", (rows, 2 * d + 1), dtype, seed=2)
+    w = w[:d]
+    if layout == "strided":
+        return x[:, :2 * d:2], w
+    if layout == "unaligned":
+        return x.reshape(-1)[1:1 + rows * d].view(rows, d), w
+    if layout == "row_pad":
+        return x.reshape(-1)[:rows * (d + 1)].view(rows, d + 1)[:, :d], w
+    return x[:, :d].contiguous(), w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout,rows,d", [
+    ("contiguous", 384, 128),     # vector kernel, several rows a CTA
+    ("contiguous", 256, 512),     # vector kernel, a warp a row
+    ("contiguous", 256, 4096),    # vector kernel, 8 warps a row
+    ("contiguous", 8, 40000),     # vector kernel, the row read again
+    ("strided", 256, 512),        # scalar kernel: a non-unit stride
+    ("unaligned", 256, 512),      # scalar kernel: off a 16-byte boundary
+    ("row_pad", 64, 512),         # scalar kernel: row stride not vectors
+    ("contiguous", 64, 4097),     # scalar kernel: width not vectors
+])
+def test_cuda_rmsnorm_vector_and_scalar_paths(cuda, layout, rows, d, dtype):
+    """Each of rmsnorm's paths within STANDALONE_TOL of the plain version
+    (bf16: at most 1 % of the bits differ), one launch a call, and a
+    second call on the same shape (the settled launch path) bitwise the
+    first."""
+    from repro_torch import kernels as sk
+    x, w = _rmsnorm_layout(layout, rows, d, dtype)
+    sk.reset_launch_counts()
+    got = sk.rmsnorm(x, w)
+    again = sk.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert sk.launch_counts()["rmsnorm"] == 2
+    assert got.shape == (rows, d) and got.is_contiguous()
+    assert torch.equal(got, again)
+    _assert_standalone_close("rmsnorm", got, sk.rmsnorm_plain(x, w))
 
 
 @pytest.mark.gpu

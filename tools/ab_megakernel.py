@@ -1,26 +1,49 @@
 #!/usr/bin/env python3
-"""Time the decode step of two versions of the CUDA megakernel in turns,
-on one card, on one heap.
+"""Time the static decode step of several versions of the CUDA megakernel
+in turns, on one card, on one heap per model.
 
     git archive <parent> src/repro_torch | tar -x -C build/parent
-    python3 tools/ab_megakernel.py build/parent [--arch deepseek-7b]
+    python3 tools/ab_megakernel.py build/parent [more roots] \\
+        [--arch served | deepseek-7b,granite-moe-1b-a400m,...] \\
+        [--json build/ab_megakernel.json]
 
-The parent's ``repro_torch`` (under ``<root>/src``) is imported as a
-second package, ``repro_torch_parent``: its own ``megakernel`` wrapper,
+Each root's ``repro_torch`` (under ``<root>/src``) is imported as a
+package of its own (``repro_torch_<i>``): its own ``megakernel`` wrapper,
 ``ctypes`` signature and build of its ``megakernel.cu`` (into
-``<root>/build/repro_torch``).  The checkout's package compiles the
-plan once (static scheduler, full depth at W = the card's SM count, B=2,
-S=128, weights drawn from seed 0) and both wrappers launch its table
-against the same heap: ``--pairs`` pairs of 5 launches (CUDA events
-around each launch, after the step's ``index_copy_``), the pair's first
-side alternating, and every launch's logits bitwise those of the first.
-Prints the card's name and power limit, each side's launch times, the
-medians and quartiles and how many pairs each side won.  Imports no JAX.
+``<root>/build/repro_torch``; every side's library is built first, in
+parallel).  The checkout's package ("change") compiles each model's
+static plan once (full width, B=2, S=128, W = the card's SM count;
+weights drawn from seed 0, the Mamba2 and qkv bias vectors redrawn per
+head as ``chip_smoke.py`` does) and every side launches that table
+against the same heap, the checkout's with the plan's walk lists.
+``--arch served`` (the default) is every model ``chip_smoke.py`` serves:
+deepseek-7b, granite-moe-1b-a400m, mamba2-2.7b at its served 16 layers,
+qwen2-vl-2b, musicgen-large at its served 24 layers, and granite at TP=4
+(W = SMs // 4).
+
+Per model, ``--pairs`` rounds; in each, every side in turn (the order
+rotating by one a round): 5 launches of the step at lengths (64, 64),
+then 3 of the all-noop table (every row a noop, its event words kept:
+the walk) and 3 of the rows-alone table (every row a noop without event
+words: the per-row cost; their difference is the event chain), CUDA
+events around each launch after the step's ``index_copy_``; the
+recurrent state (conv windows, SSD states) is restored before every
+launch.  After each side's turn one more step from the restored state
+must give logits, every state tensor and every router bitwise equal to
+the first side's.  Prints the card's name and power limit, each side's
+times, medians and quartiles, and how many rounds the checkout won
+against the first root.  Imports no JAX.
 """
 import argparse
+import dataclasses
+import gc
 import importlib.util
+import inspect
+import json
 import subprocess
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -29,80 +52,194 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
+B, S = 2, 128
+MAMBA_SERVED_LAYERS = 16
+MUSICGEN_SERVED_LAYERS = 24
+SERVED = ("deepseek-7b", "granite-moe-1b-a400m", "mamba2-2.7b",
+          "qwen2-vl-2b", "musicgen-large", "granite-moe-1b-a400m tp=4")
 
-def load_parent(root: Path):
-    """The parent checkout's ``repro_torch`` as ``repro_torch_parent``."""
+
+def load_package(root: Path, name: str):
+    """The ``repro_torch`` under ``root/src`` imported as ``name``."""
     init = root / "src" / "repro_torch" / "__init__.py"
     spec = importlib.util.spec_from_file_location(
-        "repro_torch_parent", init,
-        submodule_search_locations=[str(init.parent)])
+        name, init, submodule_search_locations=[str(init.parent)])
     mod = importlib.util.module_from_spec(spec)
-    sys.modules["repro_torch_parent"] = mod
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    importlib.import_module("repro_torch_parent.megakernel")
+    importlib.import_module(name + ".megakernel")
     return mod
 
 
-def step_ms(ex, launch, toks, lens):
-    """One launch of ``launch`` after the step's inputs, by CUDA events."""
-    ex.write_step_inputs(toks, lens)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    launch()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end)
+def _config(arch: str):
+    """(config, tp) of one served model, cut as ``chip_smoke.py`` serves
+    it."""
+    from repro_torch.configs import get_config
+    name, _, tp = arch.partition(" tp=")
+    cfg = get_config(name)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    if name == "mamba2-2.7b":
+        cfg = dataclasses.replace(cfg, n_layers=MAMBA_SERVED_LAYERS)
+    if name == "musicgen-large":
+        cfg = dataclasses.replace(cfg, n_layers=MUSICGEN_SERVED_LAYERS)
+    return cfg, int(tp or 1)
+
+
+def _redraw(plan, heap, gen):
+    """The per-head vectors the reference initialises to one value
+    (Mamba2's A_log, D_skip, dt_bias, conv biases) and the zero qkv
+    biases, redrawn as ``chip_smoke.py`` does."""
+    for name in plan.input_classes()["weights"]:
+        leaf, v = name.split(".")[-1], plan.view(heap, name)
+        if leaf == "A_log":
+            v.uniform_(0.0, 2.8, generator=gen)
+        elif leaf == "D_skip":
+            v.uniform_(0.5, 1.5, generator=gen)
+        elif leaf == "dt_bias":
+            v.normal_(0.0, 0.5, generator=gen)
+        elif leaf.startswith("conv_b") or leaf in ("bq", "bk", "bv"):
+            v.normal_(0.0, 0.1, generator=gen)
+
+
+def _stats(t):
+    t = np.asarray(t)
+    return {"median": float(np.median(t)), "q1": float(np.percentile(t, 25)),
+            "q3": float(np.percentile(t, 75)), "all": [float(x) for x in t]}
+
+
+def run_model(arch, sides, pairs, w_max):
+    from repro_torch.megakernel import (MegakernelExecutor,
+                                        compile_decode_megakernel)
+    cfg, tp = _config(arch)
+    t0 = time.perf_counter()
+    plan = compile_decode_megakernel(cfg, B, S, num_workers=w_max // tp,
+                                     tp=tp)
+    compile_s = time.perf_counter() - t0
+    ex = MegakernelExecutor(plan, cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ex.init_weights(gen)
+    _redraw(plan, ex.heap, gen)
+    rng = np.random.default_rng(0)
+    inputs = (rng.standard_normal((B, cfg.d_model)).astype(np.float32)
+              if cfg.embed_input else rng.integers(1, cfg.vocab, size=B))
+    lens = np.array([64, 64])
+    state = plan.input_classes()["state"]
+    rec = [n for n in state if not n.endswith(("k_cache", "v_cache"))]
+    pre = {n: plan.view(ex.heap, n).clone() for n in rec}
+    watched = ["logits"] + state + [n for n in plan.layout
+                                    if n.endswith(".router")]
+    descs = torch.from_numpy(plan.descs).cuda()
+    walk_t = plan.descs.copy()
+    walk_t[:, 0] = 0
+    rows_t = walk_t.copy()
+    rows_t[:, 32:35] = -1
+    tables = {"step": descs, "walk": torch.from_numpy(walk_t).cuda(),
+              "rows": torch.from_numpy(rows_t).cuda()}
+
+    def launcher(fn, table):
+        kw = {"acks": ex._acks}
+        if "walk" in inspect.signature(fn).parameters:
+            kw["walk"] = ex._walk
+        return lambda: fn(ex.heap, table, plan.statics, None, **kw)
+
+    def launch_ms(launch):
+        for n, t in pre.items():
+            plan.view(ex.heap, n).copy_(t)
+        ex.write_step_inputs(inputs, lens)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    names = list(sides)
+    times = {n: {k: [] for k in tables} for n in names}
+    first = None
+    for i in range(pairs):
+        order = names[i % len(names):] + names[:i % len(names)]
+        for name in order:
+            for k, table in tables.items():
+                launch = launcher(sides[name], table)
+                launch_ms(launch)                           # warm-up
+                times[name][k].append(float(np.mean(
+                    [launch_ms(launch) for _ in range(5 if k == "step"
+                                                      else 3)])))
+            launch_ms(launcher(sides[name], descs))
+            got = {n: plan.view(ex.heap, n).clone() for n in watched}
+            if first is None:
+                first = got
+            for n in watched:
+                assert torch.equal(got[n], first[n]), (arch, name, i, n)
+    out = {"arch": arch, "workers": plan.num_workers, "tp": tp,
+           "layers": cfg.n_layers, "rows": int(plan.descs.shape[0]),
+           "steps": plan.num_steps, "compile_s": compile_s,
+           "real_rows": int(plan.walk.size - plan.num_workers - 1),
+           "sides": {n: {k: _stats(v) for k, v in t.items()}
+                     for n, t in times.items()}}
+    base, chg = names[1], names[0]
+    out["change_faster"] = int((np.array(times[chg]["step"])
+                                < np.array(times[base]["step"])).sum())
+    del ex, descs, tables, first, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("parent", type=Path, help="root of the parent checkout")
-    ap.add_argument("--arch", default="deepseek-7b")
+    ap.add_argument("roots", type=Path, nargs="+",
+                    help="roots of the other checkouts (the first is the "
+                         "parent)")
+    ap.add_argument("--arch", default="served",
+                    help="'served' or a comma-separated list of models, "
+                         "'<model> tp=4' for TP")
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--json", type=Path, help="also write the results here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_megakernel: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.configs import get_config
-    from repro_torch.megakernel import (MegakernelExecutor,
-                                        compile_decode_megakernel, megakernel)
-    parent = load_parent(args.parent.resolve())
+    from repro_torch.megakernel import build, megakernel
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    cfg = get_config(args.arch)
-    w = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = compile_decode_megakernel(cfg, 2, 128, num_workers=w)
-    ex = MegakernelExecutor(plan, cfg, "cuda")
-    ex.init_weights(torch.Generator(device="cuda").manual_seed(0))
-    descs = torch.from_numpy(plan.descs).cuda()
-    sides = {"parent": parent.megakernel.megakernel, "change": megakernel}
-    toks = np.random.default_rng(0).integers(1, cfg.vocab, size=2)
-    lens = np.array([64, 64])
-    times = {k: [] for k in sides}
-    first = None
-    for i in range(args.pairs):
-        for name in (("parent", "change") if i % 2 == 0
-                     else ("change", "parent")):
-            fn = sides[name]
-            launch = lambda: fn(ex.heap, descs, plan.statics)  # noqa: E731
-            step_ms(ex, launch, toks, lens)                    # warm-up
-            times[name].append(float(np.mean(
-                [step_ms(ex, launch, toks, lens) for _ in range(5)])))
-            got = plan.view(ex.heap, "logits").clone()
-            first = got if first is None else first
-            assert torch.equal(got, first), (name, i)
-    print(f"{cfg.name}, static step at lengths (64, 64), W={plan.num_workers}"
-          f", {args.pairs} pairs of 5 launches, first side alternating; "
-          "logits bitwise equal on both sides")
-    p, c = np.array(times["parent"]), np.array(times["change"])
-    for name, t in (("parent", p), ("change", c)):
-        print(f"  {name}: median {np.median(t):.3f} ms, quartiles "
-              f"{np.percentile(t, 25):.3f}-{np.percentile(t, 75):.3f} ms; "
-              + " ".join(f"{x:.3f}" for x in t))
-    print(f"  change faster in {int((c < p).sum())} of {args.pairs} pairs")
+    sides = {"change": megakernel}
+    builds = [build]
+    for i, root in enumerate(args.roots):
+        pkg = load_package(root.resolve(), f"repro_torch_{i}")
+        sides[root.resolve().name] = pkg.megakernel.megakernel
+        builds.append(importlib.import_module(
+            f"repro_torch_{i}.megakernel.build"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per side
+        list(pool.map(lambda m: m.build_library(), builds))
+    print(f"built {len(builds)} megakernels in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    w_max = torch.cuda.get_device_properties(0).multi_processor_count
+    archs = SERVED if args.arch == "served" else args.arch.split(",")
+    results = []
+    for arch in archs:
+        r = run_model(arch, sides, args.pairs, w_max)
+        results.append(r)
+        print(f"{arch}: {r['layers']} layers, W={r['workers']}, "
+              f"{r['steps']} steps, {r['rows']} grid rows, "
+              f"{r['real_rows']} real rows (host compile "
+              f"{r['compile_s']:.1f} s); {args.pairs} rounds, first side "
+              "rotating; logits, state and routers bitwise equal on every "
+              "side", flush=True)
+        for name, t in r["sides"].items():
+            print("  " + name + ": " + "; ".join(
+                f"{k} median {v['median']:.3f} ms ({v['q1']:.3f}-"
+                f"{v['q3']:.3f})" for k, v in t.items()), flush=True)
+        print(f"  change faster than {args.roots[0].resolve().name} in "
+              f"{r['change_faster']} of {args.pairs} rounds", flush=True)
+    if args.json:
+        args.json.parent.mkdir(parents=True, exist_ok=True)
+        args.json.write_text(json.dumps(results))
     return 0
 
 
