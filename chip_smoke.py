@@ -403,6 +403,19 @@ def _table_events(plan):
              int((d[w == i, 34] >= 0).sum())) for i in range(W)]
 
 
+def _check_primaries(plan, counters):
+    """The launch demand-loaded every primary tile (counter word 3) and
+    prefetched none (word 2): the kernel reads the plan's prefetch words
+    (24-27) and does not act on them.  Returns (the demand loads, the
+    table's rows with word 27 = 1)."""
+    d = plan.descs
+    prim = (d[:, 0] != 0) & (d[:, 30] > 0)
+    assert sum(c["prefetch_tiles"] for c in counters) == 0
+    n_dl = sum(c["primary_fallbacks"] for c in counters)
+    assert n_dl == int(prim.sum()) > 0, n_dl
+    return n_dl, int((prim & (d[:, 27] == 1)).sum())
+
+
 def _check_events(plan, counters):
     """Zero violations, and the waits and signals the table implies, on
     every worker; returns the totals (waits, signals)."""
@@ -746,6 +759,7 @@ def phase_workers(cfg, w_max, tag):
         assert counters == read_stats_block(plain, plan.stats_offset,
                                             plan.num_workers)
         waits, sigs = _check_events(plan, counters)
+        n_dl, _ = _check_primaries(plan, counters)
         outs = {n: plan.view(ex.heap, n)
                 for n in ["logits"] + state + routers}
         if first is None:
@@ -759,7 +773,9 @@ def phase_workers(cfg, w_max, tag):
             f"(<= 2e-4), every state within 2e-4, embedding, "
             f"{n_caches} cache updates and {n_windows} conv windows' "
             f"copies bitwise, the routers' zeros the plain version's; "
-            f"{waits} waits, {sigs} signals, 0 violations")
+            f"{waits} waits, {sigs} signals, 0 violations; counter blocks "
+            f"(words 0-11) the plain version's, {n_dl} primary tiles "
+            f"demand-loaded")
         del plain, ex_plain
         if w == w_max:
             wide_heap = ex.heap
@@ -1211,6 +1227,7 @@ def phase_serve(cfg, w_max, tag):
     ex.launch()
     counters = ex.worker_counters()
     waits, sigs = _check_events(plan, counters)
+    n_dl, n_plan = _check_primaries(plan, counters)
     kernel_logits = plan.view(ex.heap, "logits").clone()
     kernel_rec = {n: plan.view(ex.heap, n).clone() for n in rec}
     ref.step(toks, lens)                             # warm-up
@@ -1223,6 +1240,11 @@ def phase_serve(cfg, w_max, tag):
     megakernel_plain(ex.heap, plan.descs, plan.statics)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_counters = ex.worker_counters()
+    words03 = ("bulk_copies", "row_copies", "prefetch_tiles",
+               "primary_fallbacks")
+    assert [[c[k] for k in words03] for c in counters] \
+        == [[c[k] for k in words03] for c in plain_counters]
     err30 = _close(kernel_logits, plan.view(ex.heap, "logits"), 3e-4)
     err_rec = 0.0                       # conv windows and SSD states
     for n, v in kernel_rec.items():
@@ -1271,6 +1293,13 @@ def phase_serve(cfg, w_max, tag):
         log(f"  {a} and {b} logits bitwise equal: {bitwise}")
     log(f"  dynamic pop sources (last timed launch): equal lengths "
         f"{_pops(qc)}; ragged {_pops(qc_ragged)}; walk {_pops(qc_walk)}")
+    ps = plan.pipeline_stats()
+    log(f"  primary tiles (static, W={W}): {n_dl} demand-loaded (counter "
+        f"word 3), none prefetched (word 2), though {n_plan} rows carry "
+        f"word 27 = 1 (the plan's coverage {ps['prefetched_tasks']} of "
+        f"{ps['prefetchable_tasks']} tasks, "
+        f"{ps['prefetch_coverage']:.3f}); words 0-3 of every worker's "
+        f"block the plain version's")
     log(f"  kernel vs plain at {L} layers: logits max_err={err30:.3e}"
         + (f", {len(rec)} conv windows and SSD states max_err="
            f"{err_rec:.3e} (<= 3e-4), the windows' shifted rows bitwise"
@@ -1325,6 +1354,7 @@ def phase_serve(cfg, w_max, tag):
             f"router weights 0)")
     log(f"phase {tag} ok ({cfg.name})")
     out = {"launches": launches, "max_abs_err": max(err30, err_rec),
+           "demand_loads": n_dl,
            "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms, "workers": W, "ms_w1": ms1,
@@ -1676,13 +1706,15 @@ def phase_tp_serve(cfg, w_max, tag):
     # one static step after the run: bitwise phase 3b's
     ex.write_step_inputs(toks, lens)
     ex.launch()
-    waits, sigs = _check_tp_run(plan, ex.heap, ex.worker_counters(),
+    counters = ex.worker_counters()
+    waits, sigs = _check_tp_run(plan, ex.heap, counters,
                                 ref["static_logits"])
+    n_dl, _ = _check_primaries(plan, counters)
     log(f"  one step at lengths {tuple(map(int, lens))} after the run: "
         f"logits on 4 "
         f"chips bitwise phase {tag[:-1]}b's static step, {n_coll} "
         f"collectives exact identities, {waits} waits, {sigs} signals, 0 "
-        f"violations")
+        f"violations, {n_dl} primary tiles demand-loaded")
 
     ms = _kernel_ms(ex, toks, lens, 5)
     ms_ragged = _kernel_ms(ex, toks, ragged, 5)
@@ -1702,6 +1734,10 @@ def phase_tp_serve(cfg, w_max, tag):
     megakernel_plain(ex.heap, plan.descs, plan.statics, acks=plan.acks)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    words03 = ("bulk_copies", "row_copies", "prefetch_tiles",
+               "primary_fallbacks")
+    assert [[c[k] for k in words03] for c in counters] \
+        == [[c[k] for k in words03] for c in ex.worker_counters()]
     err = _close(kernel_logits, plan.view(ex.heap, "logits"), 3e-4)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     by_kind, kind_ms = _time_by_kind(ex, plan, toks, lens)
@@ -1720,6 +1756,7 @@ def phase_tp_serve(cfg, w_max, tag):
         f"walk; send+allreduce_chunk = the COMM rows): " + ", ".join(by_kind))
     log(f"phase {tag} ok ({cfg.name} at TP=4)")
     return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "demand_loads": n_dl,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "tp": 4, "lanes": plan.num_workers,
             "ms_ragged": ms_ragged, "walk_ms": walk_ms,
@@ -1740,8 +1777,10 @@ def phase_tp_serve(cfg, w_max, tag):
 #: B=2, 128-token prefill chunk, its rmsnorm, and causal attention over
 #: deepseek-llm-7b's 4096-token context (32 heads of 128), (c) attention
 #: at gemma-7b's head width (16 heads of 256, configs/gemma_7b.py) over
-#: the same context, and at the widths the kernel pads (32, every
-#: reduced config's; 96); rmsnorm also on rows its scalar path takes
+#: the same context, at the widths the kernel pads (32, every reduced
+#: config's; 96) and at heads wider than 256 (320 and 512: the wide
+#: kernel; no config of the repo has one); rmsnorm also on rows its
+#: scalar path takes
 #: (``_layout``: every other column of a wider tensor, and a start one
 #: element past a 16-byte boundary)
 STANDALONE_CASES = (
@@ -1758,6 +1797,10 @@ STANDALONE_CASES = (
     ("flash_attention", "full hd=256", (1, 4096, 16, 256), {}),
     ("flash_attention", "hd=32", (2, 512, 8, 32), {}),
     ("flash_attention", "hd=96 non-causal", (2, 384, 4, 96),
+     {"causal": False}),
+    ("flash_attention", "hd=320", (1, 1024, 8, 320), {}),
+    ("flash_attention", "hd=512", (1, 1024, 8, 512), {}),
+    ("flash_attention", "hd=512 non-causal", (1, 1024, 8, 512),
      {"causal": False}),
 )
 
@@ -1805,6 +1848,8 @@ STANDALONE_KERNELS = (("matmul_kernel_wgmma", "matmul bf16 wgmma", "bf16"),
                        "bf16"),
                       ("flash_kernel_ffma", "flash_attention f32 ffma",
                        "f32"),
+                      ("flash_kernel_wide", "flash_attention wide ffma",
+                       "f32"),
                       ("rmsnorm_kernel", "rmsnorm scalar", None),
                       ("rmsnorm_vec_kernel", "rmsnorm vector", None))
 
@@ -1821,7 +1866,7 @@ def _standalone_label(line):
     for sym, label, _kind in STANDALONE_KERNELS:
         if sym in line:
             rest = line.split(sym, 1)[1]
-            if sym.startswith("rmsnorm"):
+            if sym.startswith("rmsnorm") or sym == "flash_kernel_wide":
                 label += (" bf16" if rest.startswith("I13__nv_bfloat16")
                           else " f32")
             width = re.match(r"ILi(\d+)E", rest)

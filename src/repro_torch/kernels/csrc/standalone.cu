@@ -73,6 +73,11 @@
 //     thread holds 8 query rows: 8 x BK/16 logits and 8 x HD/16 outputs; K
 //     and V tiles by cp.async, each copy under the other's math (K of the
 //     next tile under this tile's softmax and P V, V under Q K^T).
+//     Wider heads (hd > 256; the reference takes any hd), f32 and bf16
+//     alike: flash_kernel_wide, one CTA per (batch x head, 32-query block,
+//     256-column slice of the output), the logits recomputed by every
+//     slice over hd in 64-column chunks staged in shared memory, all in
+//     f32 on FFMA.  Simple, not tuned.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1373,6 +1378,125 @@ int allow_smem(const void* kernel, int bytes) {
   return 0;
 }
 
+// flash attention at hd > 256: one CTA of 256 threads per (b·h, BQ-query
+// block, DV-column slice of the output), so that the slice's O rows stay
+// in registers (DV / 8 a thread).  Per BK-key tile: S = (q * scale) k^T
+// over hd in DC-column chunks (q and k chunks staged in shared memory,
+// thread (qi, kj0) summing 8 logits of query qi), the masked logits at
+// -1e30, the online softmax of each query row across its 8 threads (warp
+// shuffles), P and the tile's V slice through shared memory, O += P V.
+// Keys past the query block's last row are skipped under the causal mask;
+// rows past S and columns past hd read as zero and are not stored.
+struct FwCfg {
+  static constexpr int BQ = 32, BK = 64, DC = 64, DV = 256, THREADS = 256;
+  static constexpr int LD = DC + 1, PLD = BK + 1;
+  static constexpr size_t SMEM =
+      sizeof(float) * (BQ * LD + BK * LD + BQ * PLD + BK * DV);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    flash_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int H,
+                      long long S, int hd, long long sqb, long long sqs,
+                      long long sqh, long long skb, long long sks,
+                      long long skh, long long svb, long long svs,
+                      long long svh, int causal, float scale) {
+  using C = FwCfg;
+  constexpr int BQ = C::BQ, BK = C::BK, DC = C::DC, DV = C::DV;
+  constexpr int NO = DV / 8;           // O columns a thread
+  extern __shared__ __align__(16) float fw_smem[];
+  float* Qs = fw_smem;
+  float* Ks = Qs + BQ * C::LD;
+  float* Ps = Ks + BK * C::LD;
+  float* Vs = Ps + BQ * C::PLD;
+  const int tid = threadIdx.x;
+  const long long bh = blockIdx.x, b = bh / H;
+  const int h = static_cast<int>(bh % H);
+  const long long q0 = static_cast<long long>(blockIdx.y) * BQ;
+  const int c0 = blockIdx.z * DV;
+  const T* qb = q + b * sqb + h * sqh;
+  const T* kb = k + b * skb + h * skh;
+  const T* vb = v + b * svb + h * svh;
+  const int qi = tid / 8, kj0 = (tid % 8) * 8, oc = tid % 8;
+  float m = -1e30f, l = 0.0f, acc[NO];
+#pragma unroll
+  for (int u = 0; u < NO; ++u) acc[u] = 0.0f;
+  const long long kend = causal ? (q0 + BQ < S ? q0 + BQ : S) : S;
+  for (long long k0 = 0; k0 < kend; k0 += BK) {
+    float s[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] = 0.0f;
+    for (int d0 = 0; d0 < hd; d0 += DC) {
+      __syncthreads();                 // Qs and Ks are free
+      for (int e = tid; e < BQ * DC; e += C::THREADS) {
+        const int r = e / DC, c = e % DC;
+        Qs[r * C::LD + c] = q0 + r < S && d0 + c < hd
+            ? to_f32(qb[(q0 + r) * sqs + d0 + c]) * scale : 0.0f;
+      }
+      for (int e = tid; e < BK * DC; e += C::THREADS) {
+        const int r = e / DC, c = e % DC;
+        Ks[r * C::LD + c] = k0 + r < S && d0 + c < hd
+            ? to_f32(kb[(k0 + r) * sks + d0 + c]) : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < DC; ++c) {
+        const float qv = Qs[qi * C::LD + c];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          s[j] = fmaf(qv, Ks[(kj0 + j) * C::LD + c], s[j]);
+      }
+    }
+    float tmax = -1e30f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long long key = k0 + kj0 + j;
+      if (key >= S || (causal && key > q0 + qi)) s[j] = -1e30f;
+      tmax = fmaxf(tmax, s[j]);
+    }
+#pragma unroll
+    for (int sh = 1; sh < 8; sh <<= 1)
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, sh));
+    const float m_new = fmaxf(m, tmax);
+    float psum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j] = expf(s[j] - m_new);
+      psum += s[j];
+      Ps[qi * C::PLD + kj0 + j] = s[j];
+    }
+#pragma unroll
+    for (int sh = 1; sh < 8; sh <<= 1)
+      psum += __shfl_xor_sync(0xffffffffu, psum, sh);
+    const float corr = expf(m - m_new);
+    l = l * corr + psum;
+    m = m_new;
+    for (int e = tid; e < BK * DV; e += C::THREADS) {
+      const int r = e / DV, c = e % DV;
+      Vs[e] = k0 + r < S && c0 + c < hd
+          ? to_f32(vb[(k0 + r) * svs + c0 + c]) : 0.0f;
+    }
+    __syncthreads();                   // P and the V slice are in place
+#pragma unroll
+    for (int u = 0; u < NO; ++u) acc[u] *= corr;
+    for (int kj = 0; kj < BK; ++kj) {
+      const float pv = Ps[qi * C::PLD + kj];
+#pragma unroll
+      for (int u = 0; u < NO; ++u)
+        acc[u] = fmaf(pv, Vs[kj * DV + oc + 8 * u], acc[u]);
+    }
+  }
+  if (q0 + qi >= S) return;
+  const float denom = fmaxf(l, 1e-30f);
+  T* orow = o + ((b * S + q0 + qi) * H + h) * static_cast<long long>(hd);
+#pragma unroll
+  for (int u = 0; u < NO; ++u) {
+    const int col = c0 + oc + 8 * u;
+    if (col < hd) orow[col] = from_f32<T>(acc[u] / denom);
+  }
+}
+
 template <int BN>
 int launch_matmul_wgmma(const void* a, const void* b, void* c, long long m,
                         long long n, long long k, long long sam,
@@ -1501,12 +1625,31 @@ int launch_flash_ffma(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_flash_wide(const void* q, const void* k, const void* v, void* o,
+                      long long b, long long s, long long h, long long hd,
+                      const long long* st, int causal, float scale,
+                      cudaStream_t stream) {
+  using C = FwCfg;
+  const int err = allow_smem(
+      reinterpret_cast<const void*>(&flash_kernel_wide<T>), (int)C::SMEM);
+  if (err != 0) return err;
+  const dim3 grid((unsigned)(b * h), (unsigned)((s + C::BQ - 1) / C::BQ),
+                  (unsigned)((hd + C::DV - 1) / C::DV));
+  flash_kernel_wide<T><<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), (int)h, s, (int)hd,
+      st[0], st[1], st[2], st[4], st[5], st[6], st[8], st[9], st[10],
+      causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  Shapes, strides (in elements) and limits
 // are checked by the Python wrappers before the call: unit inner strides,
-// other strides on 16-byte boundaries, M, N, K, S < 2**31, hd <= 256.  An
-// argument outside them returns cudaErrorInvalidValue.
+// other strides on 16-byte boundaries, M, N, K, S < 2**31.  An argument
+// outside them returns cudaErrorInvalidValue.
 
 // c = a @ b.  bf16: `variant` is the tile width BN (128 or 192),
 // splits 1, a persistent grid of min(tiles, sms) CTAs.  f32: `splits` K
@@ -1563,8 +1706,17 @@ extern "C" int sk_flash_attention(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long strides[12] = {sqb, sqs, sqh, sqd, skb, sks,
                                  skh, skd, svb, svs, svh, svd};
-  if (sqd != 1 || skd != 1 || svd != 1 || hd < 1 || hd > 256)
+  if (sqd != 1 || skd != 1 || svd != 1 || hd < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (hd > 256) {
+    if (dtype == 0)
+      return launch_flash_wide<float>(q, k, v, o, b, s, h, hd, strides,
+                                      causal, scale, st);
+    if (dtype == 1)
+      return launch_flash_wide<__nv_bfloat16>(q, k, v, o, b, s, h, hd,
+                                              strides, causal, scale, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int pad = hd <= 64 ? 64 : (hd <= 128 ? 128 : 256);
   if (dtype == 0) {
     if (pad == 64)

@@ -11,9 +11,12 @@ at :77); for tensors on the CPU it runs ``flash_attention_plain``, and on
 any other device it raises.  ``bq`` and ``bk`` keep the reference's clamp
 and divisibility check; the CUDA tiles are the kernel's own.  The kernel
 is built at the head widths ``HD_PAD`` and takes any hd up to
-``MAX_HD``, the columns past hd read as zero; a wider head raises
-(shared memory per CTA).  Inputs the kernel cannot copy as they lie are
-copied first (``build.tma_ready``).
+``MAX_HD`` there, the columns past hd read as zero; a wider head, whose K
+and V tiles would not fit a CTA's shared memory, runs in the simple wide
+kernel (256-column slices of the output, the logits recomputed for each
+in 64-column chunks; f32 arithmetic for both types), so every hd runs, as
+in the reference.  Inputs the kernel cannot copy as they lie are copied
+first (``build.tma_ready``).
 """
 from __future__ import annotations
 
@@ -31,8 +34,10 @@ __all__ = ["flash_attention", "flash_attention_plain", "HD_PAD", "MAX_HD"]
 HD_PAD = (64, 128, 256)
 MAX_HD = HD_PAD[-1]
 
-#: the kernel's query block: the grid's second axis has at most 65535
+#: the kernel's query block (the wide kernel's, past MAX_HD): the grid's
+#: second axis has at most 65535
 _KERNEL_BQ = 128
+_WIDE_BQ = 32
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int,
@@ -59,13 +64,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if placement(q, k, v) == "cpu":
         return flash_attention_plain(q, k, v, bq=bq, bk=bk, causal=causal)
     code = dtype_code(q, k, v)
-    if hd > MAX_HD:
-        raise NotImplementedError(
-            f"the CUDA flash_attention takes hd <= {MAX_HD} (its K and V "
-            f"tiles fill a CTA's shared memory), not {hd}")
-    if b * h >= 2 ** 31 or -(-s // _KERNEL_BQ) > 65535:
+    bq_k = _KERNEL_BQ if hd <= MAX_HD else _WIDE_BQ
+    if b * h >= 2 ** 31 or -(-s // bq_k) > 65535 or -(-hd // 256) > 65535:
         raise NotImplementedError("the CUDA flash_attention takes B·H < 2**31 "
-                                  f"and S <= {65535 * _KERNEL_BQ}")
+                                  f"and S <= {65535 * bq_k}")
     q, k, v = tma_ready(q), tma_ready(k), tma_ready(v)
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),

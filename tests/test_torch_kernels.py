@@ -132,6 +132,24 @@ def test_flash_attention_padded_widths_match_jax(hd, dtype):
     _close(jref.flash_attention_ref(qj, kj, vj), out, tol)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [320, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_wide_heads_match_jax(hd, dtype, causal):
+    """Heads wider than 256 (the CUDA kernel's wide path on the card):
+    the wrapper admits them and, on the CPU, runs the plain version, held
+    to the reference's kernel (interpret mode) and oracle at the
+    reference's tolerances, at a small S."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(dtype, *[(1, 64, 2, hd)] * 3,
+                                           seed=hd + causal)
+    out = tk.flash_attention(qt, kt, vt, bq=32, bk=32, causal=causal)
+    assert out.dtype == qt.dtype and out.shape == (1, 64, 2, hd)
+    tol = TOL["flash_attention"][dtype]
+    _close(jk.flash_attention(qj, kj, vj, bq=32, bk=32, causal=causal), out,
+           tol)
+    _close(jref.flash_attention_ref(qj, kj, vj, causal=causal), out, tol)
+
+
 #: chip_smoke.py's and tests/test_torch_gpu.py's bf16 flash tolerance
 #: against the plain version: rtol, atol, and the share of outputs whose
 #: bits may differ

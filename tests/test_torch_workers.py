@@ -142,12 +142,14 @@ def test_plain_counters_follow_the_table(plain_runs, workers):
     assert sum(c["event_waits"] for c in counters) > 0
 
 
-@pytest.mark.parametrize("workers", [2, 4])
+@pytest.mark.parametrize("workers", [1, 2, 4])
 def test_plain_matches_pallas_interpret_across_workers(one_layer, plain_runs,
                                                        workers):
     """The reference's Pallas megakernel in interpret mode at the same W:
     every output within 2e-4, and the per-worker wait, violation and
-    signal counters equal."""
+    signal counters equal, and so are the tile transfers and their rows
+    (the reference counts a primary tile when it prefetches it, the port
+    when it demand-loads it: the same tiles)."""
     cfg, _, (rb, _) = one_layer
     ref_ex = RefExecutor(ref_compile(cfg, B, S, num_workers=workers), cfg)
     ref = ref_ex.run_once(rb)
@@ -157,8 +159,13 @@ def test_plain_matches_pallas_interpret_across_workers(one_layer, plain_runs,
         np.testing.assert_allclose(got[name].numpy(), ref[name], rtol=2e-4,
                                    atol=2e-4, err_msg=name)
     ref_counters = ref_ex.worker_counters()
-    assert [{k: c[k] for k in EVENT_COUNTERS} for c in counters] \
-        == [{k: c[k] for k in EVENT_COUNTERS} for c in ref_counters]
+    keys = EVENT_COUNTERS + ("bulk_copies", "row_copies")
+    assert [{k: c[k] for k in keys} for c in counters] \
+        == [{k: c[k] for k in keys} for c in ref_counters]
+    assert [c["primary_fallbacks"] for c in counters] \
+        == [c["primary_fallbacks"] + c["prefetch_tiles"]
+            for c in ref_counters]
+    assert all(c["prefetch_tiles"] == 0 for c in counters)
 
 
 def test_executor_resets_counters_between_steps():

@@ -32,9 +32,21 @@ launch.  After each side's turn one more step from the restored state
 must give logits, every state tensor and every router bitwise equal to
 the first side's.  Prints the card's name and power limit, each side's
 times, medians and quartiles, and how many rounds the checkout won
-against the first root.  Imports no JAX.
+against the first root.
+
+A side whose library exports ``mk_set_stamp`` (a stamped copy written by
+``tools/prefetch_variants.py --stamp``) also runs one more step with its
+per-task ``%globaltimer`` stamps on; the tool prints, in microseconds, the
+busiest worker's (the one whose last task ends last) sum of each part of
+its task rows (the wait; the primary tile in place after it; the first
+weight bytes after that; thread 0's share of the weight stream; the rest
+of the task up to its stores; the gap from a task's stores to the next
+task's wait, which holds its signal, its noop rows and the next row's
+copy), the medians of each part over every matmul and expert GEMM task
+of the step, and the median gap.  Imports no JAX.
 """
 import argparse
+import ctypes
 import dataclasses
 import gc
 import importlib.util
@@ -108,6 +120,43 @@ def _stats(t):
             "q3": float(np.percentile(t, 75)), "all": [float(x) for x in t]}
 
 
+#: the parts of a stamped task row: (name, first stamp, last stamp)
+PARTS = (("wait", 0, 1), ("in_place", 1, 2), ("first_weight", 2, 3),
+         ("stream", 3, 4), ("rest", 4, 5))
+
+
+def stamp_tables(descs, W, st):
+    """The stamp tables of one step from its (rows, 8) stamps (ns; 0:
+    not stamped): the busiest worker's sums, the medians over the
+    weight-streaming tasks (kinds 1 and 10), the median gap; µs."""
+    rows = np.flatnonzero(st[:, 0] > 0)
+    t = st[rows].astype(np.int64)
+    kinds = descs[rows, 0]
+    mm = np.isin(kinds, (1, 10))
+    t[~mm, 3] = t[~mm, 4] = t[~mm, 2]    # no stream: in place -> rest
+    part = {n: (t[:, b] - t[:, a]) / 1e3 for n, a, b in PARTS}
+    workers = rows % W
+    gap = np.full(rows.size, np.nan)
+    span = {}
+    for w in np.unique(workers):
+        idx = np.flatnonzero(workers == w)
+        idx = idx[np.argsort(t[idx, 0])]
+        gap[idx[1:]] = (t[idx[1:], 0] - t[idx[:-1], 5]) / 1e3
+        span[int(w)] = (idx, (t[idx[-1], 5] - t[idx[0], 0]) / 1e3)
+    t_end = {w: t[idx[-1], 5] for w, (idx, _) in span.items()}
+    busy = max(t_end, key=t_end.get)
+    idx = span[busy][0]
+    return {"worker": busy, "tasks": int(idx.size),
+            "weight_tasks": int(mm[idx].sum()), "span_us": span[busy][1],
+            "step_us": (t[:, 5].max() - t[:, 0].min()) / 1e3,
+            "busiest_sum_us": {n: float(np.sum(v[idx]))
+                               for n, v in part.items()}
+            | {"gap": float(np.nansum(gap[idx]))},
+            "weight_task_median_us": {n: float(np.median(v[mm]))
+                                      for n, v in part.items()},
+            "gap_median_us": float(np.nanmedian(gap))}
+
+
 def run_model(arch, sides, pairs, w_max):
     from repro_torch.megakernel import (MegakernelExecutor,
                                         compile_decode_megakernel)
@@ -162,23 +211,37 @@ def run_model(arch, sides, pairs, w_max):
         order = names[i % len(names):] + names[:i % len(names)]
         for name in order:
             for k, table in tables.items():
-                launch = launcher(sides[name], table)
+                launch = launcher(sides[name][0], table)
                 launch_ms(launch)                           # warm-up
                 times[name][k].append(float(np.mean(
                     [launch_ms(launch) for _ in range(5 if k == "step"
                                                       else 3)])))
-            launch_ms(launcher(sides[name], descs))
+            launch_ms(launcher(sides[name][0], descs))
             got = {n: plan.view(ex.heap, n).clone() for n in watched}
             if first is None:
                 first = got
             for n in watched:
                 assert torch.equal(got[n], first[n]), (arch, name, i, n)
+    stamps = {}
+    for name, (fn, build) in sides.items():
+        lib = build.load_library()
+        if not hasattr(lib, "mk_set_stamp"):
+            continue
+        lib.mk_set_stamp.argtypes = [ctypes.c_void_p]
+        lib.mk_set_stamp.restype = ctypes.c_int
+        buf = torch.zeros(plan.descs.shape[0] * 8, dtype=torch.int64,
+                          device="cuda")
+        assert lib.mk_set_stamp(buf.data_ptr()) == 0
+        launch_ms(launcher(fn, descs))
+        assert lib.mk_set_stamp(None) == 0
+        stamps[name] = stamp_tables(plan.descs, plan.num_workers,
+                                    buf.view(-1, 8).cpu().numpy())
     out = {"arch": arch, "workers": plan.num_workers, "tp": tp,
            "layers": cfg.n_layers, "rows": int(plan.descs.shape[0]),
            "steps": plan.num_steps, "compile_s": compile_s,
            "real_rows": int(plan.walk.size - plan.num_workers - 1),
            "sides": {n: {k: _stats(v) for k, v in t.items()}
-                     for n, t in times.items()}}
+                     for n, t in times.items()}, "stamps": stamps}
     base, chg = names[1], names[0]
     out["change_faster"] = int((np.array(times[chg]["step"])
                                 < np.array(times[base]["step"])).sum())
@@ -207,13 +270,13 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    sides = {"change": megakernel}
-    builds = [build]
+    sides = {"change": (megakernel, build)}
     for i, root in enumerate(args.roots):
         pkg = load_package(root.resolve(), f"repro_torch_{i}")
-        sides[root.resolve().name] = pkg.megakernel.megakernel
-        builds.append(importlib.import_module(
-            f"repro_torch_{i}.megakernel.build"))
+        sides[root.resolve().name] = (pkg.megakernel.megakernel,
+                                      importlib.import_module(
+                                          f"repro_torch_{i}.megakernel.build"))
+    builds = [b for _, b in sides.values()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per side
         list(pool.map(lambda m: m.build_library(), builds))
@@ -237,6 +300,18 @@ def main() -> int:
                 f"{v['q3']:.3f})" for k, v in t.items()), flush=True)
         print(f"  change faster than {args.roots[0].resolve().name} in "
               f"{r['change_faster']} of {args.pairs} rounds", flush=True)
+        for name, st in r["stamps"].items():
+            print(f"  stamps {name}: busiest worker {st['worker']} "
+                  f"({st['tasks']} tasks, {st['weight_tasks']} streaming "
+                  f"weights, {st['span_us']:.1f} us of a {st['step_us']:.1f}"
+                  " us step); its sums (us) " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in
+                      st["busiest_sum_us"].items())
+                  + "; medians over the weight-streaming tasks (us) "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in
+                              st["weight_task_median_us"].items())
+                  + f"; median gap {st['gap_median_us']:.2f} us",
+                  flush=True)
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(results))
