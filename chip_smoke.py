@@ -105,6 +105,19 @@ for that many workers, and the partitioner picks the width it uses.
    script near its time limit); its 2-layer
    checks folded into this phase: the bitwise tables and the kernel
    against its plain version at the served depth;
+2g. the same checks on gemma-7b cut to 2 layers at full width (d=3072,
+   16 MHA heads of 256, so H * hd = 4096 differs from d; d_ff 24576 with
+   GeGLU, the (1 + w) RMSNorm, the sqrt(d) embedding scale and the tied
+   head, whose 5,376-column matmul tiles run as two passes over column
+   ranges), and each task kind alone (``_time_by_kind``'s table) within
+   2e-4 of the plain version, rope and attention at head_dim 256
+   included;
+3g. gemma-7b at ``GEMMA_SERVED_LAYERS`` of its 28 layers (all of them:
+   the served phase fits the script's time limit, PERF.md section 4)
+   served as in phase 3 (a ``ServingEngine``, 4 ragged requests, every
+   decode step within 3e-4 of the torch Program, the static W_max, W = 1
+   and dynamic tables bitwise on one heap), the step timed static and
+   dynamic beside its bound, each task kind alone;
 2d. tensor parallelism over the fused transport (C chips as regions of
    one heap on the one card, kinds 14-15: the ring send and the
    all-reduce chunk): deepseek-7b and granite at 2 layers and full width,
@@ -225,7 +238,8 @@ def phase_build():
     names = {"ILb0ELi0E": "static", "ILb1ELi0E": "dynamic",
              "ILb0ELi1E": "static extended", "ILb1ELi1E": "dynamic extended",
              "ILb0ELi2E": "static full", "ILb1ELi2E": "dynamic full",
-             "ILb0ELi3E": "static multichip"}
+             "ILb0ELi3E": "static multichip", "ILb0ELi4E": "static wide",
+             "ILb1ELi4E": "dynamic wide"}
     which = ""
     for line in out.splitlines():
         if "megakernel" in line and ("Compiling" in line
@@ -596,54 +610,62 @@ def _bias_vectors(plan, heap, seed=SEED + 2):
     return len(names)
 
 
-def _check_rope_alone(plan, cfg2, base, toks, lens, pos):
-    """Kind 3 alone (``_time_by_kind``'s table: every other row a noop,
-    its event words kept) on the card and in the plain version, from a
-    heap where the plain version has run the whole step (the q and k
-    rows in place): every ROPE output within 2e-4 of the plain
-    version's.  Under M-RoPE the rows take ``pos``, distinct (t, h, w)
-    columns, and the same table on text-mode positions must give other
-    q rows.  Returns the largest error."""
-    from repro_torch.core.graph import OpKind
+def _check_kinds_alone(plan, cfg2, base, toks, lens, pos, codes=(3,)):
+    """Each task kind of ``codes`` alone (``_time_by_kind``'s table: every
+    other row a noop, its event words kept) on the card and in the plain
+    version, from a heap where the plain version has run the whole step
+    (every kind's inputs in place): every output of the kind's ops within
+    2e-4 of the plain version's.  Under M-RoPE, kind 3's rows take
+    ``pos``, distinct (t, h, w) columns, and the same table on text-mode
+    positions must give other q rows.  Returns the largest error."""
     from repro_torch.megakernel import (MegakernelExecutor, launch_count,
                                         megakernel, megakernel_plain,
                                         reset_launch_count)
+    from repro_torch.megakernel.desc import KIND_CODES
     ex = MegakernelExecutor(plan, cfg2, "cuda")
     ex.upload(base.clone())
     ex.write_step_inputs(toks, lens, pos)
     megakernel_plain(ex.heap, plan.descs, plan.statics)
-    image = ex.heap
-    table = plan.descs.copy()
-    table[table[:, 0] != 3, 0] = 0
-    table = torch.from_numpy(table).cuda()
-    outs = [op.outputs[0] for op in plan.compiled.graph.ops
-            if op.kind == OpKind.ROPE]
-    err, first = 0.0, {}
-    for p in ((pos, None) if pos is not None else (None,)):
-        ex.upload(image.clone())
-        ex.write_step_inputs(toks, lens, p)
-        plain = ex.heap.clone()
-        reset_launch_count()
-        megakernel(ex.heap, table, plan.statics)
-        torch.cuda.synchronize()
-        assert launch_count() == 1
-        megakernel_plain(plain, table.cpu().numpy(), plan.statics)
-        for n in outs:
-            err = max(err, _close(plan.view(ex.heap, n),
-                                  plan.view(plain, n), 2e-4))
-        first[p is None] = plan.view(ex.heap, outs[0]).clone()
-        assert all(c["event_wait_violations"] == 0
-                   for c in ex.worker_counters())
-    if pos is not None:
-        assert not torch.equal(first[False], first[True])
-    log(f"  kind 3 alone at W={plan.num_workers} ({len(outs)} rope "
-        f"outputs, {int((plan.descs[:, 0] == 3).sum())} tasks"
-        + (", distinct (t, h, w) positions and then text mode" if pos
-           is not None else "") + f"): max_err vs plain {err:.3e} "
-        f"(<= 2e-4)")
+    image = ex.heap.clone()             # two heaps beside the phase's one
+    worst = 0.0
+    for code in codes:
+        table = plan.descs.copy()
+        table[table[:, 0] != code, 0] = 0
+        table = torch.from_numpy(table).cuda()
+        outs = [op.outputs[0] for op in plan.compiled.graph.ops
+                if KIND_CODES.get(op.kind) == code]
+        assert outs, code
+        err, first = 0.0, {}
+        mrope = code == 3 and pos is not None
+        for p in ((pos, None) if mrope else (pos,)):
+            ex.heap.copy_(image)
+            ex.write_step_inputs(toks, lens, p)
+            reset_launch_count()
+            megakernel(ex.heap, table, plan.statics)
+            torch.cuda.synchronize()
+            assert launch_count() == 1
+            assert all(c["event_wait_violations"] == 0
+                       for c in ex.worker_counters())
+            got = {n: plan.view(ex.heap, n).clone() for n in outs}
+            ex.heap.copy_(image)        # the plain version on the same
+            ex.write_step_inputs(toks, lens, p)   # heap, from the image
+            megakernel_plain(ex.heap, table.cpu().numpy(), plan.statics)
+            for n in outs:
+                err = max(err, _close(got[n], plan.view(ex.heap, n), 2e-4))
+            first[p is None] = got[outs[0]]
+        if mrope:
+            assert not torch.equal(first[False], first[True])
+        log(f"  kind {code} ({KIND_NAMES[code]}) alone at "
+            f"W={plan.num_workers} ({len(outs)} outputs, "
+            f"{int((plan.descs[:, 0] == code).sum())} tasks"
+            + (", distinct (t, h, w) positions and then text mode"
+               if mrope else "")
+            + (f", head_dim {plan.statics['HD']}" if code in (3, 6) else "")
+            + f"): max_err vs plain {err:.3e} (<= 2e-4)")
+        worst = max(worst, err)
     del ex, image
     torch.cuda.empty_cache()
-    return err
+    return worst
 
 
 def _recurrent(plan):
@@ -675,10 +697,12 @@ def _check_conv_windows(plan, heap, plain):
     return n
 
 
-def phase_workers(cfg, w_max, tag):
+def phase_workers(cfg, w_max, tag, kinds_alone=False):
     """Two layers at full width, one heap image: the kernel at W ∈ {1, 2,
     4, W_max} against each other and against its plain version, then
-    traced at W_max; the deadline and residency faults in phase 2."""
+    traced at W_max; the deadline and residency faults in phase 2.  With
+    ``kinds_alone``, each task kind of the plan alone against the plain
+    version (an embedding-input plan checks kind 3 alone always)."""
     from repro_torch.megakernel import (MegakernelExecutor,
                                         compile_decode_megakernel,
                                         launch_count, megakernel_plain,
@@ -805,8 +829,14 @@ def phase_workers(cfg, w_max, tag):
         f"Perfetto JSON valid")
     del ex, wide_heap
     torch.cuda.empty_cache()
+    if kinds_alone:
+        codes = sorted(set(wide.descs[:, 0].tolist()) - {0})
+        errs.append(_check_kinds_alone(wide, cfg2, base, toks, lens, pos,
+                                       codes))
     if cfg.embed_input:
-        errs.append(_check_rope_alone(wide, cfg2, base, toks, lens, pos))
+        if not kinds_alone:
+            errs.append(_check_kinds_alone(wide, cfg2, base, toks, lens,
+                                           pos))
         log(f"  the step took (B, D) embeddings (h0) in place of tokens"
             + (f", {n_bias} qkv bias vectors redrawn" if n_bias else "")
             + (f", positions {pos.tolist()} (t, h, w) with M-RoPE "
@@ -897,6 +927,28 @@ def _bound(work, flops_per_s=H100_F32_FLOPS):
     type (f32 unless given)."""
     t_b, t_f = work[0] / H100_HBM_BYTES_PER_S, work[1] / flops_per_s
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+def _stream_partition(plan):
+    """How the static partition spreads the weight stream: the matmul
+    and expert-GEMM weight words (rows · columns of each tile) each
+    worker reads, the busiest worker's against the mean over the workers
+    that read any, and the matmul tiles wider than one pass of the
+    kernel's matmul (``MM_PASS``) and the workers that run them."""
+    from repro_torch.megakernel.kernel import MM_PASS
+    d, W = plan.descs, plan.num_workers
+    lane = np.arange(d.shape[0]) % W
+    mm = np.isin(d[:, 0], (1, 10))
+    words = np.bincount(lane[mm], weights=(d[mm, 3] * d[mm, 2])
+                        .astype(np.float64), minlength=W)
+    wide = np.bincount(lane[(d[:, 0] == 1) & (d[:, 2] > MM_PASS)],
+                       minlength=W)
+    top = int(words.argmax())
+    return {"busiest_worker": top, "busiest_words": float(words[top]),
+            "mean_words": float(words[words > 0].mean()),
+            "matmul_workers": int((words > 0).sum()),
+            "wide_tiles": int(wide.sum()), "wide_workers":
+            int((wide > 0).sum()), "busiest_wide_tiles": int(wide[top])}
 
 
 KIND_NAMES = ("noop", "matmul", "rmsnorm", "rope", "glu", "resid",
@@ -1024,6 +1076,11 @@ MAMBA_SERVED_LAYERS = 16
 #: compile took up to 343 s on the host of an H100 machine, which with
 #: the other phases' host time left the script within 10 % of its limit
 MUSICGEN_SERVED_LAYERS = 24
+
+#: layers of gemma-7b's served phase 3g (of 28): all of them; its heap is
+#: 70.0 GB of the card's 80 GB, and the phase's host compile and run fit
+#: the script's time limit (PERF.md section 4)
+GEMMA_SERVED_LAYERS = 28
 
 
 def _serve_embeds(prog, cfg, rng, chunk=16, new=8):
@@ -1334,6 +1391,15 @@ def phase_serve(cfg, w_max, tag):
         f"under its cost model min {min(util):.2f} mean "
         f"{sum(util) / W:.2f} max {max(util):.2f}): "
         + " ".join(p if k == 1 else f"{p} x{k}" for p, k in runs))
+    stream = _stream_partition(plan)
+    log(f"  matmul weight words each worker streams (the partition): "
+        f"busiest worker {stream['busiest_worker']} "
+        f"{stream['busiest_words'] / 1e6:.1f} M words, mean "
+        f"{stream['mean_words'] / 1e6:.1f} M over the "
+        f"{stream['matmul_workers']} workers with matmuls; tiles wider "
+        f"than one pass ({stream['wide_tiles']}) on "
+        f"{stream['wide_workers']} workers, "
+        f"{stream['busiest_wide_tiles']} of them on the busiest")
     by_kind, kind_ms = _time_by_kind(ex, plan, toks, lens)
     log(f"  kernel time by kind alone under the static scheduler at W={W} "
         "(kind ms/tasks; noop = the walk of each worker's real rows with "
@@ -1366,7 +1432,7 @@ def phase_serve(cfg, w_max, tag):
            "walk_rows_ms": kind_ms["rows"],
            "walk_events_ms": kind_ms["noop"] - kind_ms["rows"],
            "real_rows": int(plan.walk.size - W - 1),
-           "grid_rows": int(plan.descs.shape[0])}
+           "grid_rows": int(plan.descs.shape[0]), **stream}
     if var < len(VARIANTS) - 1:
         for (sched, v), t in ab.items():
             key = "ms_ab_" if sched == "static" else "ms_dyn_ab_"
@@ -2130,25 +2196,29 @@ def main() -> int:
     granite = get_config("granite-moe-1b-a400m")
     granite = dataclasses.replace(granite,
                                   capacity_factor=float(granite.n_experts))
+    mamba = get_config("mamba2-2.7b")
+    qwen = get_config("qwen2-vl-2b")
+    # served cut to MUSICGEN_SERVED_LAYERS of its 48 layers, for the time
+    # limit
+    music = dataclasses.replace(get_config("musicgen-large"),
+                                n_layers=MUSICGEN_SERVED_LAYERS)
+    gemma = get_config("gemma-7b")
+    gemma_served = dataclasses.replace(gemma, n_layers=GEMMA_SERVED_LAYERS)
     err2 = timed("phase 2", phase_workers, dense, w_max, "2")
     k = timed("phase 3", phase_serve, dense, w_max, "3")
     err2b = timed("phase 2b", phase_workers, granite, w_max, "2b")
     kb = timed("phase 3b", phase_serve, granite, w_max, "3b")
-    mamba = get_config("mamba2-2.7b")
     err2c = timed("phase 2c", phase_workers, mamba, w_max, "2c")
     # served cut to MAMBA_SERVED_LAYERS of its 64 layers, for the time
     # limit: its host compile was the script's longest before musicgen's
     kc = timed("phase 3c", phase_serve,
                dataclasses.replace(mamba, n_layers=MAMBA_SERVED_LAYERS),
                w_max, "3c")
-    qwen = get_config("qwen2-vl-2b")
-    # served cut to MUSICGEN_SERVED_LAYERS of its 48 layers, for the time
-    # limit
-    music = dataclasses.replace(get_config("musicgen-large"),
-                                n_layers=MUSICGEN_SERVED_LAYERS)
     err2e = timed("phase 2e", phase_workers, qwen, w_max, "2e")
     ke = timed("phase 3e", phase_serve, qwen, w_max, "3e")
     kf = timed("phase 3f", phase_serve, music, w_max, "3f")
+    err2g = timed("phase 2g", phase_workers, gemma, w_max, "2g", True)
+    kg = timed("phase 3g", phase_serve, gemma_served, w_max, "3g")
     err2d = max(timed("phase 2d", phase_tp_workers, m, w_max, "2d")
                 for m in (dense, granite))
     kd = timed("phase 3d", phase_tp_serve, granite, w_max, "3d")
@@ -2165,14 +2235,15 @@ def main() -> int:
     # the top-level times are deepseek-7b's (the dense slice); each
     # model's own numbers follow under "models"
     kernel.update(k)
-    kernel["launches"] = sum(m["launches"] for m in (k, kb, kc, kd, ke, kf))
+    kernel["launches"] = sum(m["launches"]
+                             for m in (k, kb, kc, kd, ke, kf, kg))
     kernel["max_abs_err"] = max(k["max_abs_err"], err2, kb["max_abs_err"],
                                 err2b, kc["max_abs_err"], err2c, err2d,
                                 kd["max_abs_err"], ke["max_abs_err"], err2e,
-                                kf["max_abs_err"])
+                                kf["max_abs_err"], kg["max_abs_err"], err2g)
     kernel["models"] = {dense.name: k, granite.name: kb, mamba.name: kc,
                         f"{granite.name} tp=4": kd, qwen.name: ke,
-                        music.name: kf}
+                        music.name: kf, gemma.name: kg}
     log(f"chip_smoke took {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": [kernel] + standalone}))
     log(json.dumps({"ok": True, "device": {

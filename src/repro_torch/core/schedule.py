@@ -46,6 +46,8 @@ import dataclasses
 import heapq
 from typing import Callable, Dict, List, Set, Tuple
 
+import numpy as np
+
 from ..roofline.hw import (AOT_EVENT_WAIT, COMPUTE_LATENCY, JIT_HOP,
                            TASK_OVERHEAD, TPU_V5E, WORKERS_PER_CHIP,
                            comm_time)
@@ -354,14 +356,22 @@ def _preds_map(deps: Set[Tuple[int, int]]) -> Dict[int, Set[int]]:
 def _list_schedule(tg: TGraph, lin: LinearizedTGraph, width: int,
                    depth: Dict[int, float], deps: Set[Tuple[int, int]],
                    preds: Dict[int, Set[int]],
-                   time_fn: Callable, wait_fn: Callable) -> List[List[int]]:
+                   cost: Dict[int, Tuple[float, float]]) -> List[List[int]]:
     """Critical-path list scheduling (HEFT-style earliest-finish
     insertion) onto ``width`` identical workers.  Ready tasks are
     released in longest-critical-path order (ties broken by the
     latency-aware linearized position, so width 1 degenerates to a
     topological order consistent with ``lin``); each is placed on the
-    worker where it can finish earliest, cross-worker producers charging
-    one event wait."""
+    worker where it can finish earliest (the lowest such worker),
+    cross-worker producers charging one event wait.
+
+    A task's earliest start on worker ``k`` is the latest of the worker's
+    free time, its producers' finish times on ``k`` and the others'
+    finish times plus the wait: every worker without a producer takes the
+    latest of all the latter, so only the producers' workers are priced
+    one by one (the same maxima as a loop over every (worker, producer)
+    pair, in O(width + producers) a task).  ``cost`` holds each task's
+    (time, cross-worker wait)."""
     succ: Dict[int, List[int]] = {tid: [] for tid in tg.tasks}
     indeg: Dict[int, int] = {tid: 0 for tid in tg.tasks}
     for a, b in deps:
@@ -374,25 +384,34 @@ def _list_schedule(tg: TGraph, lin: LinearizedTGraph, width: int,
             heapq.heappush(ready, (-depth.get(tid, 0.0),
                                    lin.index[tid], tid))
     queues: List[List[int]] = [[] for _ in range(width)]
-    worker_free = [0.0] * width
+    worker_free = np.zeros(width)
     worker_of: Dict[int, int] = {}
     done: Dict[int, float] = {}
+    inf = float("inf")
     while ready:
         _d, _i, tid = heapq.heappop(ready)
-        task = tg.tasks[tid]
-        wait = wait_fn(task)
-        best_w, best_start = 0, float("inf")
-        for k in range(width):
-            avail = worker_free[k]
-            for p in preds.get(tid, ()):
-                t_ready = done[p] + (0.0 if worker_of[p] == k else wait)
-                if t_ready > avail:
-                    avail = t_ready
-            if avail < best_start:
-                best_w, best_start = k, avail
+        dt, wait = cost[tid]
+        own: Dict[int, float] = {}      # worker -> its producers' finish
+        far: Dict[int, float] = {}      # worker -> the same plus the wait
+        for p in preds.get(tid, ()):
+            k, t = worker_of[p], done[p]
+            if t > own.get(k, -inf):
+                own[k] = t
+            if t + wait > far.get(k, -inf):
+                far[k] = t + wait
+        if far:
+            k1 = max(far, key=far.__getitem__)
+            v1 = far[k1]
+            v2 = max((v for k, v in far.items() if k != k1), default=-inf)
+            avail = np.maximum(worker_free, v1)
+            for k, t in own.items():
+                avail[k] = max(worker_free[k], t, v2 if k == k1 else v1)
+        else:
+            avail = worker_free
+        best_w = int(np.argmin(avail))
         worker_of[tid] = best_w
         queues[best_w].append(tid)
-        done[tid] = best_start + time_fn(task, False)
+        done[tid] = float(avail[best_w]) + dt
         worker_free[best_w] = done[tid]
         for m in succ[tid]:
             indeg[m] -= 1
@@ -453,7 +472,8 @@ def replay_partition(tg: TGraph, queues: List[List[int]],
                      pipeline_depth: int = 2,
                      overlap_comm: bool = False,
                      n_dma: int = 4,
-                     deps: Set[Tuple[int, int]] = None) -> ReplayResult:
+                     deps: Set[Tuple[int, int]] = None,
+                     preds: Dict[int, Set[int]] = None) -> ReplayResult:
     """Deterministic replay of a worker partition under the roofline cost
     model: worker *w* executes ``queues[w]`` in order, a task starts once
     its worker is free and every producer has finished (cross-worker
@@ -461,7 +481,8 @@ def replay_partition(tg: TGraph, queues: List[List[int]],
     than ``pipeline_depth`` steps earlier pays the demand-load stall.
     Used for the partitioner's width selection AND by
     ``runtime_sim.simulate`` — the simulated makespan IS this number.
-    ``deps`` lets callers reuse an already-materialized dependency set."""
+    ``deps`` (and ``preds``, its producers by consumer) lets callers reuse
+    an already-materialized dependency set."""
     if deps is None:
         deps = tg.task_dependencies()
     worker_of = {t: w for w, q in enumerate(queues) for t in q}
@@ -470,7 +491,8 @@ def replay_partition(tg: TGraph, queues: List[List[int]],
         for a, b in deps:
             if 0 < step_of[b] - step_of[a] < pipeline_depth:
                 stalled.add(b)
-    preds = _preds_map(deps)
+    if preds is None:
+        preds = _preds_map(deps)
     order = sorted(((step_of[t], w, t)
                     for w, q in enumerate(queues) for t in q))
     worker_t = [0.0] * len(queues)
@@ -523,20 +545,22 @@ def partition_workers(tg: TGraph, lin: LinearizedTGraph, num_workers: int,
     deps = tg.task_dependencies()
     preds = _preds_map(deps)
     depth = critical_path_depths(tg)
+    cost = {tid: (time_fn(t, False), wait_fn(t))
+            for tid, t in tg.tasks.items()}
     best = None
     for width in range(1, num_workers + 1):
         if width == 1:
             queues = [list(lin.order)]
         else:
             queues = _list_schedule(tg, lin, width, depth, deps, preds,
-                                    time_fn, wait_fn)
+                                    cost)
             queues = [q for q in queues if q]  # drop never-used workers
         step_of, num_steps = _assign_steps(tg, queues, preds)
         res = replay_partition(tg, queues, step_of, time_fn=time_fn,
                                wait_fn=wait_fn,
                                pipeline_depth=pipeline_depth,
                                overlap_comm=overlap_comm, n_dma=n_dma,
-                               deps=deps)
+                               deps=deps, preds=preds)
         if best is None or res.makespan < best[0]:
             best = (res.makespan, queues, step_of, num_steps, res)
     makespan, queues, step_of, num_steps, res = best

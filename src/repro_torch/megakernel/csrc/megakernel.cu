@@ -506,10 +506,43 @@ __device__ void mm_tail(float* heap, const long long* d, long long r0,
   }
 }
 
+// Float4 column groups one mm_pass takes: 2 a thread, 4096 columns.
+constexpr long long MM_GROUPS = 2 * NT;
+
+// A matmul tile wider than one pass (gemma-7b's tied head: 5376 columns)
+// as passes over column ranges of equal width, each at least NT groups
+// wide, so that every pass keeps K whole (nks = 1: each column sums k =
+// 0, 1, ... in order) and needs no reduction scratch, all on the x rows
+// staged once.  Each pass runs the one-pass code on a copy of the words
+// it reads (4, 5, 8, 9, 10, 14) with the output, weight and bias columns
+// moved to the pass's first column, as the expert GEMM rewrites them.
+__device__ void mm_wide(float* heap, const long long* d, long long r0,
+                        int rp, long long K, long long ncg, const Smem& sm) {
+  __shared__ long long dd[16];
+  const long long passes = (ncg + MM_GROUPS - 1) / MM_GROUPS;
+  const long long pw = (ncg + passes - 1) / passes;
+  for (long long g0 = 0; g0 < ncg; g0 += pw) {
+    __syncthreads();                    // the last pass has read dd
+    if (threadIdx.x == 0) {
+      const long long c0 = g0 * VEC;
+      dd[4] = d[4] + c0;
+      dd[5] = d[5];
+      dd[8] = d[8] + c0;
+      dd[9] = d[9];
+      dd[10] = d[10] >= 0 ? d[10] + c0 : -1;
+      dd[14] = d[14];
+    }
+    __syncthreads();
+    mm_pass<2, 8>(heap, dd, r0, rp, K, lmin(pw, ncg - g0), sm);
+  }
+}
+
 // EXT: the tail pass for the columns past the whole float4 groups;
 // without it the store width is a whole number of groups (the host picks
-// the EXT kernel otherwise).
-template <bool EXT>
+// the EXT kernel otherwise).  WIDE: tiles wider than one pass (mm_wide),
+// compiled only into the wide instantiations (the host picks them for a
+// plan with such a tile), so that the others keep their code.
+template <bool EXT, bool WIDE = false>
 __device__ void k_matmul(float* heap, const long long* d, const Statics& S,
                          const Smem& sm) {
   const long long m = d[1], K = d[3];
@@ -529,6 +562,10 @@ __device__ void k_matmul(float* heap, const long long* d, const Statics& S,
         else mm_pass<2, 8>(heap, d, r0, rp, K, ncg, sm);
       }
       if (ncg * VEC < ws) mm_tail(heap, d, r0, rp, K, ncg * VEC, ws, sm);
+    } else if constexpr (WIDE) {
+      if (ncg <= NT) mm_pass<1, 16>(heap, d, r0, rp, K, ncg, sm);
+      else if (ncg <= MM_GROUPS) mm_pass<2, 8>(heap, d, r0, rp, K, ncg, sm);
+      else mm_wide(heap, d, r0, rp, K, ncg, sm);
     } else {
       if (ncg <= NT) mm_pass<1, 16>(heap, d, r0, rp, K, ncg, sm);
       else mm_pass<2, 8>(heap, d, r0, rp, K, ncg, sm);
@@ -1086,7 +1123,8 @@ __device__ __forceinline__ void wait_event(float* heap, const Statics& S,
 
 // EXT: 0 the dense kinds (0-8), 1 with the MoE kinds (9-11) and the
 // matmul's tail pass, 2 with the Mamba2 kinds (12-13) as well, 3 (static
-// only) with the COMM kinds (14-15) as well.
+// only) with the COMM kinds (14-15) as well; 4 the dense kinds with the
+// matmul's passes over tiles wider than one (mm_wide).
 template <int EXT>
 __device__ __forceinline__ void run_task(long long kind, float* heap,
                                          const long long* d,
@@ -1097,7 +1135,7 @@ __device__ __forceinline__ void run_task(long long kind, float* heap,
       return;
     }
   }
-  if constexpr (EXT >= 2) {
+  if constexpr (EXT == 2 || EXT == 3) {
     switch (kind) {
       case 12:
         k_ssm(heap, d, store_width(d[2], S), S.hd_ssm, S.nh_tile, S.n_ssm);
@@ -1106,7 +1144,7 @@ __device__ __forceinline__ void run_task(long long kind, float* heap,
       default: break;
     }
   }
-  if constexpr (EXT >= 1) {
+  if constexpr (EXT >= 1 && EXT <= 3) {
     switch (kind) {
       case 9: k_softmax_topk(heap, d, S); return;
       case 10: k_moe_gg(heap, d, S, sm); return;
@@ -1116,7 +1154,7 @@ __device__ __forceinline__ void run_task(long long kind, float* heap,
   }
   switch (kind) {
     case 0: break;
-    case 1: k_matmul<(EXT >= 1)>(heap, d, S, sm); break;
+    case 1: k_matmul<(EXT >= 1 && EXT <= 3), EXT == 4>(heap, d, S, sm); break;
     case 2: k_rmsnorm(heap, d, S, sm); break;
     case 3: k_rope(heap, d, S); break;
     case 4: k_glu(heap, d, S); break;
@@ -1532,7 +1570,9 @@ __device__ void dyn_loop(float* heap, const long long* __restrict__ descs,
 // ones nothing (in one kernel with the MoE kinds they raised the static
 // extended kernel's spill from 100 to 124 bytes), and the COMM kinds and
 // their guard cost the single-chip kernels nothing (megakernel<false, 3>
-// is the only instantiation with them).
+// is the only instantiation with them), and the matmul's wide passes cost
+// every other kernel nothing (megakernel<DYN, 4> is the only
+// instantiation with them: the others keep their code and registers).
 template <bool DYN, int EXT>
 __global__ void __launch_bounds__(NT)
 megakernel(float* heap, const long long* __restrict__ descs,
@@ -1588,6 +1628,9 @@ long long resident_ctas(const void* kernel, size_t smem, cudaError_t* err) {
 }
 
 const void* kernel_for(bool dyn, long long ext) {
+  if (ext == 4)
+    return dyn ? reinterpret_cast<const void*>(megakernel<true, 4>)
+               : reinterpret_cast<const void*>(megakernel<false, 4>);
   if (ext == 3)                         // static only
     return dyn ? nullptr : reinterpret_cast<const void*>(megakernel<false, 3>);
   if (ext == 2)
@@ -1612,7 +1655,7 @@ extern "C" long long mk_max_workers(long long tk, long long hd) {
   cudaError_t err;
   long long n = -1;
   for (const bool dyn : {false, true})
-    for (const long long ext : {0, 1, 2, 3}) {
+    for (const long long ext : {0, 1, 2, 3, 4}) {
       if (dyn && ext == 3) continue;    // the multichip kernel is static
       const long long k = resident_ctas(kernel_for(dyn, ext),
                                         smem_bytes(tk, hd), &err);
@@ -1635,7 +1678,8 @@ extern "C" long long mk_max_workers(long long tk, long long hd) {
 // (kind 9).  `ext` selects the variant: 1 the extended kernel (a plan
 // with the MoE kinds or a masked-store chunk that is not a whole float4
 // group), 2 the full one (a plan with the Mamba2 kinds), 3 the multichip
-// one (a stamped plan, static only), 0 the dense.  `hd_ssm`, `n_ssm`,
+// one (a stamped plan, static only), 4 the wide one (a dense plan with a
+// matmul tile wider than one pass), 0 the dense.  `hd_ssm`, `n_ssm`,
 // `nh_tile` and `w_conv` shape the Mamba2 kinds (12-13); `acks` is a
 // multichip plan's (rows, 2) side table (null otherwise).  `mrope0-2`
 // are the M-RoPE sections (0, 0, 0 without), after `stream` so that the

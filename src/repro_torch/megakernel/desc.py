@@ -733,6 +733,13 @@ def lower_tgraph(compiled: CompiledTGraph, cfg,
                          KIND_CODES[OpKind.MOE_GATHER_GEMM]))
     statics["TK"] = _align(max(statics["TK"],
                                int(descs[mm, 3].max(initial=1))))
+    # port-only: the widest matmul tile's store width (valid columns in
+    # STORE_CH chunks, capped at TN), which picks the kernel's wide
+    # instantiation past one matmul pass
+    chw = min(statics["STORE_CH"], statics["TN"])
+    n = descs[kinds == KIND_CODES[OpKind.MATMUL], 2]
+    statics["MM_WIDTH"] = int(np.minimum(statics["TN"], -(-n // chw) * chw)
+                              .max(initial=0))
 
     part = compiled.partition
     if scheduler == "dynamic":

@@ -59,16 +59,21 @@ from .desc import (DESC_WORDS, STATS_WORDS, TRACE_HEADER, TRACE_WORDS,
 
 __all__ = ["megakernel", "megakernel_plain", "launch_count",
            "reset_launch_count", "check_plan", "check_workers",
-           "max_workers", "MAX_TN", "MAX_HD", "MAX_TK", "MAX_EXPERTS",
-           "MAX_MROPE", "SPIN_TIMEOUT_S"]
+           "max_workers", "mm_passes", "MM_PASS", "MAX_TN", "MAX_HD",
+           "MAX_TK", "MAX_EXPERTS", "MAX_MROPE", "SPIN_TIMEOUT_S"]
 
 #: limits of the CUDA kernel's tiling: 512 threads × 2 float4 column
-#: groups per matmul thread (the widest matmul or expert tile; the other
-#: kinds loop over any width), 8 head elements per lane in attention, and
-#: the two staged rows of x (2 · TK words) beside the K-slice partial
-#: sums (16 KB) and the staged and running descriptor rows (1536 bytes with
-#: the reduction words) in the H100's 227 KB of shared memory
-MAX_TN = 4096
+#: groups per matmul thread in one pass (``MM_PASS``: in a plan of the
+#: dense kinds a matmul tile wider than that runs as passes over column
+#: ranges, on the x rows staged once, in the kernel's wide instantiation,
+#: so kind 1 takes any width there; the expert GEMM, kind 10, runs one
+#: pass and keeps ``MAX_TN``; the other kinds loop over any width), 8
+#: head elements per lane in attention, and the two staged rows of x (2 ·
+#: TK words) beside the K-slice partial sums (16 KB) and the staged and
+#: running descriptor rows (1536 bytes with the reduction words) in the
+#: H100's 227 KB of shared memory
+MM_PASS = 4096
+MAX_TN = MM_PASS
 MAX_HD = 256
 MAX_TK = 26752
 
@@ -120,8 +125,9 @@ def _attn_hd(statics: Mapping[str, Any]) -> int:
 
 
 def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
-    """Raise for a plan the CUDA kernel's tiling cannot run: matmul or
-    expert tiles wider than ``MAX_TN``, matmuls deeper than ``MAX_TK``,
+    """Raise for a plan the CUDA kernel's tiling cannot run: expert tiles
+    wider than ``MAX_TN``, matmul tiles wider than ``MM_PASS`` outside
+    the dense kinds (the wide kernel's), matmuls deeper than ``MAX_TK``,
     rope or attention heads wider than ``MAX_HD`` or odd, matmul weights
     not addressable as float4, SSD state tiles (kind 12) not addressable
     as float4 or not ``NH_TILE`` heads wide, or a dynamic
@@ -144,12 +150,18 @@ def check_plan(statics: Mapping[str, Any], descs: np.ndarray) -> None:
     chw = min(statics["STORE_CH"], statics["TN"])
     mm = descs[descs[:, 0] == 1]
     gg = descs[descs[:, 0] == 10]
-    widest = int(np.minimum(statics["TN"], -(-np.concatenate(
-        [mm[:, 2], gg[:, 2]]) // chw) * chw).max(initial=0))
+    widest = int(np.minimum(statics["TN"], -(-gg[:, 2] // chw) * chw)
+                 .max(initial=0))
     if widest > MAX_TN or statics["TK"] > MAX_TK:
         raise NotImplementedError(
-            f"matmul tile {widest} wide, TK={statics['TK']}: exceeds "
+            f"expert tile {widest} wide, TK={statics['TK']}: exceeds "
             f"{MAX_TN}x{MAX_TK}")
+    mm_widest = int(np.minimum(statics["TN"], -(-mm[:, 2] // chw) * chw)
+                    .max(initial=0))
+    if mm_widest > MM_PASS and _variant(statics) != 4:
+        raise NotImplementedError(
+            f"matmul tile {mm_widest} wide: only the dense kinds' wide "
+            "kernel runs tiles wider than one pass")
     hd = _attn_hd(statics)
     if hd > MAX_HD or hd % 2:
         raise NotImplementedError(f"head_dim {hd}")
@@ -195,14 +207,20 @@ def _variant(statics: Mapping[str, Any]) -> int:
     only: every kind and the COMM kinds 14-15) for a stamped plan, 2
     (full) for the Mamba2 kinds (12-13), 1 (extended) for the MoE kinds
     (a top-k) or a masked-store chunk that is not a whole float4 group
-    (the matmul's tail pass), else 0 (dense).  Each adds its kinds to the
-    one before, and the ones before keep their code and registers."""
+    (the matmul's tail pass), else 4 (wide: the dense kinds and the
+    matmul's passes over tiles wider than ``MM_PASS``) for a matmul tile
+    wider than that (the port-only ``MM_WIDTH``; ``TN`` where a table
+    built by hand lacks it), else 0 (dense).  Each of 1-3 adds its kinds
+    to the one before; every instantiation but the one a plan needs
+    keeps its code and registers."""
     if statics.get("N_CHIPS", 1) > 1 or {14, 15} & set(_kinds(statics)):
         return 3
     if {12, 13} & set(_kinds(statics)):
         return 2
-    return int(statics.get("TOPK", 0) > 0
-               or min(statics["STORE_CH"], statics["TN"]) % 4 != 0)
+    if statics.get("TOPK", 0) > 0 \
+            or min(statics["STORE_CH"], statics["TN"]) % 4 != 0:
+        return 1
+    return 4 if statics.get("MM_WIDTH", statics["TN"]) > MM_PASS else 0
 
 
 def max_workers(statics: Mapping[str, Any], device=None) -> int:
@@ -622,18 +640,33 @@ def _operand_transfers(d, statics, scalar):
     return 0, 0
 
 
+def mm_passes(ws: int):
+    """The column ranges ``[c0, c1)`` of a matmul tile ``ws`` columns wide
+    that the CUDA kernel runs as one pass each (``mm_wide``): the whole
+    tile up to ``MM_PASS`` columns, else equal ranges of float4 groups,
+    each at most ``MM_PASS`` wide, the last one taking the columns past
+    the whole groups (the kernel's tail pass)."""
+    ncg = ws // 4
+    if ncg * 4 <= MM_PASS:
+        return [(0, ws)]
+    passes = -(-ncg * 4 // MM_PASS)
+    pw = -(-ncg // passes)
+    cuts = [4 * g for g in range(0, ncg, pw)] + [ws]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
 def _run_task(d, tile, width, scalar, heap, TN, HD, G, half, inv_freq,
               topk, statics=None):
     """One task of kind ``d[0]`` (1-15) on the heap, in place; the
     Mamba2 kinds (12-13) read their shapes from ``statics``."""
     code, m = d[0], d[1]
     if code == 1:                       # matmul + bias + activation
-        n, k = d[2], d[3]
-        ws = width(n)
-        y = tile(d[6], d[7], m, k) @ tile(d[8], d[9], k, ws)
-        if d[10] >= 0:
-            y = y + heap[d[10]:d[10] + ws]
-        tile(d[4], d[5], m, ws).copy_(_act(y, d[14]))
+        k, x = d[3], tile(d[6], d[7], m, d[3])
+        for c0, c1 in mm_passes(width(d[2])):
+            y = x @ tile(d[8] + c0, d[9], k, c1 - c0)
+            if d[10] >= 0:
+                y = y + heap[d[10] + c0:d[10] + c1]
+            tile(d[4] + c0, d[5], m, c1 - c0).copy_(_act(y, d[14]))
     elif code == 2:                     # rmsnorm
         n = d[2]
         ws = width(n)

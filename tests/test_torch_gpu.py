@@ -215,6 +215,7 @@ def _counter_case(family, cuda):
     cfg, tp = {"dense": (_cfg(2), 1), "moe": (_moe_cfg(1), 1),
                "ssm": (_ssm_cfg(1), 1),
                "embed": (_embed_cfg("qwen2-vl-2b", 1, False), 1),
+               "gemma": (_gemma_cfg(1, False), 1),
                "tp2": (_cfg(1), 2)}[family]
     plan = compile_decode_megakernel(cfg, B, S, num_workers=4 // tp, tp=tp)
     if cfg.embed_input:
@@ -226,9 +227,12 @@ def _counter_case(family, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("family", ["dense", "moe", "ssm", "embed", "tp2"])
+@pytest.mark.parametrize("family", ["dense", "moe", "ssm", "embed", "gemma",
+                                    "tp2"])
 def test_cuda_static_counters_match_plain_version(cuda, family):
-    """Under the static scheduler at W ∈ {1, 2, 4} (TP=2: 1 and 2 a chip):
+    """Under the static scheduler at W ∈ {1, 2, 4} (TP=2: 1 and 2 a chip;
+    gemma: the reduced model with its head tiles wider than one pass, in
+    the kernel's wide instantiation):
     each worker's counter block (words 0-11: transfers, rows, prefetched
     tiles, demand loads, waits, violations, signals) equal to the plain
     version's from the same heap, no tile prefetched and every primary
@@ -881,6 +885,83 @@ def _tp_bindings(cfg, cuda, seed=3):
              for k, v in init_cache(cfg, B, S, device=cuda).items()}
     return decode_bindings(cfg, params, cache, np.array([3, 7]),
                            np.array([1, 12]))
+
+
+# ---------------------------------------------------------------------------
+# gemma-7b: the tied head's 5,376-column matmul tiles (wider than one pass
+# of the kernel's matmul, so run as passes over column ranges), heads of
+# 256 in kinds 3 and 6, the (1 + w) norm, GeGLU and the sqrt(d) scale.
+# ---------------------------------------------------------------------------
+
+
+#: the reduced gemma's vocabulary, widened so that the head's tiles (4,224
+#: columns) are wider than one pass (``test_torch_gemma.py``'s)
+GEMMA_WIDE_VOCAB = 200_000
+
+
+def _gemma_cfg(layers, full):
+    cfg = get_config("gemma-7b")
+    if full:
+        return dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg.reduced(), n_layers=layers,
+                               vocab=GEMMA_WIDE_VOCAB)
+
+
+@pytest.mark.gpu
+def test_cuda_gemma_wide_head_tiles_match_plain_version(cuda):
+    """gemma-7b reduced (d = 128) with its vocabulary widened to 200,000:
+    the head's tiles are 4,224 columns wide.  One step at W ∈ {1, 4} under
+    both schedulers from one heap image: logits within 2e-4 of the plain
+    version and bitwise equal across W and schedulers."""
+    from repro_torch.megakernel.kernel import MM_PASS
+    cfg = _gemma_cfg(1, False)
+    plans = [compile_decode_megakernel(cfg, B, S, num_workers=w,
+                                       scheduler=sched)
+             for w in (1, 4) for sched in ("static", "dynamic")]
+    mm = plans[0].descs[plans[0].descs[:, 0] == 1]
+    assert mm[:, 2].max() == 4224 > MM_PASS
+    base = _base_heap(max(plans, key=lambda p: p.heap_size), cfg, cuda)
+    first = None
+    for plan in plans:
+        run, plain = _step_at(plan, cfg, base, cuda)
+        megakernel_plain(plain, plan.descs, plan.statics,
+                         plan.dyn.sched_table() if plan.dynamic else None)
+        got = plan.view(run.heap, "logits")
+        torch.testing.assert_close(got, plan.view(plain, "logits"),
+                                   rtol=2e-4, atol=2e-4)
+        if first is None:
+            first = got.clone()
+        assert torch.equal(got, first)
+        assert all(c["event_wait_violations"] == 0
+                   for c in run.worker_counters())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code", [3, 6])
+def test_cuda_gemma_hd256_kind_matches_plain_version(cuda, code):
+    """gemma-7b at full width, one layer (16 MHA heads of 256, H * hd =
+    4096 against d = 3072): one step, then kind 3 (rope) or kind 6
+    (attention) alone, every other row a noop, on the step's heap: each
+    output of the kind within 2e-4 of the plain version's."""
+    from repro_torch.megakernel.desc import KIND_CODES
+    cfg = _gemma_cfg(1, True)
+    plan = compile_decode_megakernel(cfg, B, S, num_workers=4)
+    assert plan.statics["HD"] == 256
+    run, _ = _step_at(plan, cfg, _base_heap(plan, cfg, cuda), cuda)
+    table = plan.descs.copy()
+    table[table[:, 0] != code, 0] = 0
+    assert (table[:, 0] == code).any()
+    outs = [op.outputs[0] for op in plan.compiled.graph.ops
+            if KIND_CODES.get(op.kind) == code]
+    plain = run.heap.clone()
+    megakernel(run.heap, torch.from_numpy(table).to(cuda), plan.statics)
+    torch.cuda.synchronize()
+    megakernel_plain(plain, table, plan.statics)
+    for n in outs:
+        got = plan.view(run.heap, n)
+        assert torch.isfinite(got).all() and got.abs().max() > 0
+        torch.testing.assert_close(got, plan.view(plain, n), rtol=2e-4,
+                                   atol=2e-4)
 
 
 @pytest.mark.gpu

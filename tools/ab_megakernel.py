@@ -18,8 +18,11 @@ head as ``chip_smoke.py`` does) and every side launches that table
 against the same heap, the checkout's with the plan's walk lists.
 ``--arch served`` (the default) is every model ``chip_smoke.py`` serves:
 deepseek-7b, granite-moe-1b-a400m, mamba2-2.7b at its served 16 layers,
-qwen2-vl-2b, musicgen-large at its served 24 layers, and granite at TP=4
-(W = SMs // 4).
+qwen2-vl-2b, musicgen-large at its served 24 layers, granite at TP=4
+(W = SMs // 4) and gemma-7b at its served 28 layers.  A side whose
+package's ``check_plan`` refuses a model's plan (a parent from before
+the kernel took that model: gemma-7b's 5,376-column head tiles before
+the matmul's passes) sits that model out, and says so.
 
 Per model, ``--pairs`` rounds; in each, every side in turn (the order
 rotating by one a round): 5 launches of the step at lengths (64, 64),
@@ -67,8 +70,10 @@ sys.path.insert(0, str(ROOT / "src"))
 B, S = 2, 128
 MAMBA_SERVED_LAYERS = 16
 MUSICGEN_SERVED_LAYERS = 24
+GEMMA_SERVED_LAYERS = 28
 SERVED = ("deepseek-7b", "granite-moe-1b-a400m", "mamba2-2.7b",
-          "qwen2-vl-2b", "musicgen-large", "granite-moe-1b-a400m tp=4")
+          "qwen2-vl-2b", "musicgen-large", "granite-moe-1b-a400m tp=4",
+          "gemma-7b")
 
 
 def load_package(root: Path, name: str):
@@ -95,6 +100,8 @@ def _config(arch: str):
         cfg = dataclasses.replace(cfg, n_layers=MAMBA_SERVED_LAYERS)
     if name == "musicgen-large":
         cfg = dataclasses.replace(cfg, n_layers=MUSICGEN_SERVED_LAYERS)
+    if name == "gemma-7b":
+        cfg = dataclasses.replace(cfg, n_layers=GEMMA_SERVED_LAYERS)
     return cfg, int(tp or 1)
 
 
@@ -165,6 +172,13 @@ def run_model(arch, sides, pairs, w_max):
     plan = compile_decode_megakernel(cfg, B, S, num_workers=w_max // tp,
                                      tp=tp)
     compile_s = time.perf_counter() - t0
+    refused = {}
+    for name, (_, _, check) in sides.items():
+        try:
+            check(plan.statics, plan.descs)
+        except NotImplementedError as e:
+            refused[name] = str(e)
+    sides = {n: s for n, s in sides.items() if n not in refused}
     ex = MegakernelExecutor(plan, cfg, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     ex.init_weights(gen)
@@ -223,7 +237,7 @@ def run_model(arch, sides, pairs, w_max):
             for n in watched:
                 assert torch.equal(got[n], first[n]), (arch, name, i, n)
     stamps = {}
-    for name, (fn, build) in sides.items():
+    for name, (fn, build, _) in sides.items():
         lib = build.load_library()
         if not hasattr(lib, "mk_set_stamp"):
             continue
@@ -241,10 +255,13 @@ def run_model(arch, sides, pairs, w_max):
            "steps": plan.num_steps, "compile_s": compile_s,
            "real_rows": int(plan.walk.size - plan.num_workers - 1),
            "sides": {n: {k: _stats(v) for k, v in t.items()}
-                     for n, t in times.items()}, "stamps": stamps}
-    base, chg = names[1], names[0]
-    out["change_faster"] = int((np.array(times[chg]["step"])
-                                < np.array(times[base]["step"])).sum())
+                     for n, t in times.items()}, "stamps": stamps,
+           "refused": refused}
+    if len(names) > 1:
+        base, chg = names[1], names[0]
+        out["base"] = base
+        out["change_faster"] = int((np.array(times[chg]["step"])
+                                    < np.array(times[base]["step"])).sum())
     del ex, descs, tables, first, pre
     gc.collect()
     torch.cuda.empty_cache()
@@ -270,13 +287,16 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    sides = {"change": (megakernel, build)}
+    from repro_torch.megakernel.kernel import check_plan
+    sides = {"change": (megakernel, build, check_plan)}
     for i, root in enumerate(args.roots):
         pkg = load_package(root.resolve(), f"repro_torch_{i}")
-        sides[root.resolve().name] = (pkg.megakernel.megakernel,
-                                      importlib.import_module(
-                                          f"repro_torch_{i}.megakernel.build"))
-    builds = [b for _, b in sides.values()]
+        sides[root.resolve().name] = (
+            pkg.megakernel.megakernel,
+            importlib.import_module(f"repro_torch_{i}.megakernel.build"),
+            importlib.import_module(
+                f"repro_torch_{i}.megakernel.kernel").check_plan)
+    builds = [b for _, b, _ in sides.values()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per side
         list(pool.map(lambda m: m.build_library(), builds))
@@ -298,8 +318,11 @@ def main() -> int:
             print("  " + name + ": " + "; ".join(
                 f"{k} median {v['median']:.3f} ms ({v['q1']:.3f}-"
                 f"{v['q3']:.3f})" for k, v in t.items()), flush=True)
-        print(f"  change faster than {args.roots[0].resolve().name} in "
-              f"{r['change_faster']} of {args.pairs} rounds", flush=True)
+        for name, why in r["refused"].items():
+            print(f"  {name} sits this model out: {why}", flush=True)
+        if "change_faster" in r:
+            print(f"  change faster than {r['base']} in "
+                  f"{r['change_faster']} of {args.pairs} rounds", flush=True)
         for name, st in r["stamps"].items():
             print(f"  stamps {name}: busiest worker {st['worker']} "
                   f"({st['tasks']} tasks, {st['weight_tasks']} streaming "
