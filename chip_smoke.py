@@ -118,6 +118,13 @@ for that many workers, and the partitioner picks the width it uses.
    decode step within 3e-4 of the torch Program, the static W_max, W = 1
    and dynamic tables bitwise on one heap), the step timed static and
    dynamic beside its bound, each task kind alone;
+3h. llama4-maverick's shared experts (a GLU MLP on every token beside
+   the routed experts, summed by a residual add; dense and MoE layers
+   interleaved) at full width (d=5120, 40 heads of 128 over 8 KV heads,
+   expert width 8192), cut to ``LLAMA4_SERVED`` (4 layers, 16 of its 128
+   experts, a 32,000-token vocabulary: one MoE layer of all 128 experts
+   is 64 GB, and the extended kernel refuses head tiles wider than one
+   pass), dropless, served as in phase 3b;
 2d. tensor parallelism over the fused transport (C chips as regions of
    one heap on the one card, kinds 14-15: the ring send and the
    all-reduce chunk): deepseek-7b and granite at 2 layers and full width,
@@ -1081,6 +1088,15 @@ MUSICGEN_SERVED_LAYERS = 24
 #: 70.0 GB of the card's 80 GB, and the phase's host compile and run fit
 #: the script's time limit (PERF.md section 4)
 GEMMA_SERVED_LAYERS = 28
+
+#: llama4-maverick's served phase 3h: (layers, experts, vocabulary) of
+#: its (48, 128, 202048), at full width.  One MoE layer of all 128
+#: experts is 64 GB in float32; 16 experts over 4 layers (two of them
+#: MoE, each with its shared expert) make a 36.7 GB heap.  The MoE kinds
+#: run in the extended kernel, which refuses matmul tiles wider than one
+#: pass (``kernel.MM_PASS``): the full vocabulary's head tiles are 4,224
+#: columns, 32,000's under one pass
+LLAMA4_SERVED = (4, 16, 32000)
 
 
 def _serve_embeds(prog, cfg, rng, chunk=16, new=8):
@@ -2204,6 +2220,10 @@ def main() -> int:
                                 n_layers=MUSICGEN_SERVED_LAYERS)
     gemma = get_config("gemma-7b")
     gemma_served = dataclasses.replace(gemma, n_layers=GEMMA_SERVED_LAYERS)
+    n_l, n_e, n_v = LLAMA4_SERVED
+    llama4 = dataclasses.replace(get_config("llama4-maverick-400b-a17b"),
+                                 n_layers=n_l, n_experts=n_e, vocab=n_v,
+                                 capacity_factor=float(n_e))
     err2 = timed("phase 2", phase_workers, dense, w_max, "2")
     k = timed("phase 3", phase_serve, dense, w_max, "3")
     err2b = timed("phase 2b", phase_workers, granite, w_max, "2b")
@@ -2219,6 +2239,7 @@ def main() -> int:
     kf = timed("phase 3f", phase_serve, music, w_max, "3f")
     err2g = timed("phase 2g", phase_workers, gemma, w_max, "2g", True)
     kg = timed("phase 3g", phase_serve, gemma_served, w_max, "3g")
+    kh = timed("phase 3h", phase_serve, llama4, w_max, "3h")
     err2d = max(timed("phase 2d", phase_tp_workers, m, w_max, "2d")
                 for m in (dense, granite))
     kd = timed("phase 3d", phase_tp_serve, granite, w_max, "3d")
@@ -2236,14 +2257,15 @@ def main() -> int:
     # model's own numbers follow under "models"
     kernel.update(k)
     kernel["launches"] = sum(m["launches"]
-                             for m in (k, kb, kc, kd, ke, kf, kg))
+                             for m in (k, kb, kc, kd, ke, kf, kg, kh))
     kernel["max_abs_err"] = max(k["max_abs_err"], err2, kb["max_abs_err"],
                                 err2b, kc["max_abs_err"], err2c, err2d,
                                 kd["max_abs_err"], ke["max_abs_err"], err2e,
-                                kf["max_abs_err"], kg["max_abs_err"], err2g)
+                                kf["max_abs_err"], kg["max_abs_err"], err2g,
+                                kh["max_abs_err"])
     kernel["models"] = {dense.name: k, granite.name: kb, mamba.name: kc,
                         f"{granite.name} tp=4": kd, qwen.name: ke,
-                        music.name: kf, gemma.name: kg}
+                        music.name: kf, gemma.name: kg, llama4.name: kh}
     log(f"chip_smoke took {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": [kernel] + standalone}))
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 The port's copy of ``repro/core/lowering.py`` for the dense, MoE and
 SSM families and the embedding-input backbones (the ``h0`` graph input,
-and (B, 3) positions for M-RoPE), with the TP AllReduce insertion (the
-hybrid and shared-expert branches are later slices and raise).  The
+and (B, 3) positions for M-RoPE), the shared experts beside the routed
+ones (llama4), with the TP AllReduce insertion (the hybrid branch is a
+later slice and raises).  The
 graph's tensor names double as binding keys and as the port's parameter
 names, so ``decode_bindings`` is the parameter dict plus the cache and
 the per-step inputs.
@@ -214,6 +215,18 @@ def build_decode_graph(
             g.add_op(OpKind.MOE_COMBINE, [f"{L}.eo", f"{L}.router"],
                      [f"{L}.moe_out"])
             y = f"{L}.moe_out"
+            if cfg.n_shared_experts:    # a GLU MLP beside, always on
+                fs = fe * cfg.n_shared_experts
+                sg = matmul(x, f"{L}.shared_gate_w", f"{L}.sgate", fs)
+                su = matmul(x, f"{L}.shared_up_w", f"{L}.sup", fs)
+                g.add_tensor(f"{L}.sglu", (b, fs))
+                g.add_op(OpKind.GLU_MUL, [sg, su], [f"{L}.sglu"],
+                         activation=cfg.activation)
+                so = matmul(f"{L}.sglu", f"{L}.shared_down_w",
+                            f"{L}.shared_out", d)
+                g.add_tensor(f"{L}.moe_total", (b, d))
+                g.add_op(OpKind.RESIDUAL_ADD, [y, so], [f"{L}.moe_total"])
+                y = f"{L}.moe_total"
         y = allreduce(y, f"{L}.ffn_ar")
         g.add_tensor(f"{L}.h2", (b, d))
         g.add_op(OpKind.RESIDUAL_ADD, [h, y], [f"{L}.h2"])

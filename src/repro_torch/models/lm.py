@@ -3,12 +3,13 @@ prefill path.
 
 It mirrors ``repro/models/lm.py`` (the reference) for the dense family
 (attention + gated MLP in every layer), the MoE family (attention + a
-routed-expert FFN, ``models/moe.py``), the SSM family (a Mamba2 mixer
+routed-expert FFN, ``models/moe.py``, with llama4's shared experts
+beside it, dense and MoE layers interleaved or not), the SSM family (a Mamba2 mixer
 and no FFN in every layer, ``models/ssm.py``, one group of B and C) and
 the embedding-input backbones of the dense family (``embed_input``:
 float embeddings in place of token ids and no embedding table; M-RoPE
-where the config has sections).  The hybrid family and shared experts
-are later slices and raise ``NotImplementedError``.
+where the config has sections).  The hybrid family is a later slice
+and raises ``NotImplementedError``.
 
 Parameters are a flat dict keyed by the decode graph's tensor names
 (``embed`` unless the config takes embeddings, ``L0.wq``,
@@ -63,9 +64,9 @@ def block_structure(cfg) -> Dict[str, Any]:
 
 def check_supported(cfg) -> None:
     """Raise for configurations outside the ported slices: attention and
-    a gated MLP or routed experts (no shared ones) in every layer, or a
-    Mamba2 mixer with one group of B and C and no FFN in every layer.
-    Token or embedding inputs, RoPE or M-RoPE."""
+    a gated MLP or routed experts (shared ones beside them or not) in
+    every layer, or a Mamba2 mixer with one group of B and C and no FFN in
+    every layer.  Token or embedding inputs, RoPE or M-RoPE."""
     layers = {(cfg.layer_kind(i), cfg.ffn_kind(i))
               for i in range(cfg.n_layers)}
     if not (layers <= {("attn", "mlp"), ("attn", "moe")}
@@ -74,9 +75,6 @@ def check_supported(cfg) -> None:
             f"{cfg.name}: only the dense, MoE and SSM families (attention "
             "+ MLP or experts in every layer, or a Mamba2 mixer alone in "
             "every layer) are ported yet")
-    if cfg.n_shared_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: shared experts are not ported yet")
     if ("ssm", "none") in layers and cfg.ssm_ngroups != 1:
         raise NotImplementedError(
             f"{cfg.name}: Mamba2 with {cfg.ssm_ngroups} groups of B and C "
@@ -120,6 +118,11 @@ def param_specs(cfg) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:
             specs[f"{L}.router_w"] = ((d, e), d ** -0.5)
             specs[f"{L}.moe_w1"] = ((e, d, 2, fe), d ** -0.5)
             specs[f"{L}.moe_w2"] = ((e, fe, d), fe ** -0.5)
+            if cfg.n_shared_experts:
+                fs = fe * cfg.n_shared_experts
+                specs[f"{L}.shared_gate_w"] = ((d, fs), d ** -0.5)
+                specs[f"{L}.shared_up_w"] = ((d, fs), d ** -0.5)
+                specs[f"{L}.shared_down_w"] = ((fs, d), fs ** -0.5)
         else:
             specs[f"{L}.wi_gate"] = ((d, f), d ** -0.5)
             specs[f"{L}.wi_up"] = ((d, f), d ** -0.5)
@@ -226,6 +229,11 @@ def params_from_jax(np_tree, cfg, device=None) -> Dict[str, torch.Tensor]:
             out[f"{L}.router_w"] = t(moe["router"][blk, ei])
             out[f"{L}.moe_w1"] = t(moe["w1"][blk, ei])      # (E, D, 2, F)
             out[f"{L}.moe_w2"] = t(moe["w2"][blk, ei])      # (E, F, D)
+            if cfg.n_shared_experts:
+                swi = np.asarray(moe["shared_wi"][blk, ei], np.float32)
+                out[f"{L}.shared_gate_w"] = t(swi[:, 0])    # (D, F_s)
+                out[f"{L}.shared_up_w"] = t(swi[:, 1])
+                out[f"{L}.shared_down_w"] = t(moe["shared_wo"][blk, ei])
             continue
         mlp, mi = blocks["mlp"], st["mlp_pos"].index(pos)
         out[f"{L}.ln2_w"] = t(mlp["ln"][blk, mi])
@@ -302,6 +310,9 @@ def _ffn(h, params, L, cfg):
     if f"{L}.router_w" in params:
         p = {"router": params[f"{L}.router_w"], "w1": params[f"{L}.moe_w1"],
              "w2": params[f"{L}.moe_w2"]}
+        if cfg.n_shared_experts:
+            for nm in ("gate", "up", "down"):
+                p[f"shared_{nm}"] = params[f"{L}.shared_{nm}_w"]
         return h + moe_ffn(x.reshape(-1, x.shape[-1]), p,
                            cfg).reshape(h.shape)
     gate = x @ params[f"{L}.wi_gate"]

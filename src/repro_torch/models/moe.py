@@ -16,7 +16,8 @@ logits in index order: the same choice and the same order as the
 reference.
 
 Weight layout: router (D, E), w1 (E, D, 2, F) with gate and up on axis
--2, w2 (E, F, D).  Shared experts (llama4) are a later slice.
+-2, w2 (E, F, D); the shared experts (llama4) gate and up (D, F_s) and
+down (F_s, D).
 """
 from __future__ import annotations
 
@@ -84,14 +85,19 @@ def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
 def moe_ffn(x2d: torch.Tensor, p: Mapping[str, torch.Tensor], cfg: Any, *,
             capacity_factor: Optional[float] = None) -> torch.Tensor:
     """MoE FFN over flat tokens (T, D) with the reference's single-shard
-    semantics; ``p`` holds ``router``, ``w1`` and ``w2``.  The capacity
-    factor defaults to ``cfg.capacity_factor``."""
-    if cfg.n_shared_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: shared experts are not ported yet")
+    semantics; ``p`` holds ``router``, ``w1`` and ``w2`` and, with
+    ``cfg.n_shared_experts``, the shared experts' ``shared_gate`` and
+    ``shared_up`` (D, F_s) and ``shared_down`` (F_s, D): a GLU MLP on
+    every token, added to the routed experts' sum.  The capacity factor
+    defaults to ``cfg.capacity_factor``."""
     cf = capacity_factor if capacity_factor is not None \
         else cfg.capacity_factor
     cap = expert_capacity(x2d.shape[0], cfg.top_k, cfg.n_experts, cf)
-    return _moe_local(x2d, p["router"], p["w1"], p["w2"], top_k=cfg.top_k,
-                      n_experts=cfg.n_experts, capacity=cap,
-                      activation=cfg.activation)
+    y = _moe_local(x2d, p["router"], p["w1"], p["w2"], top_k=cfg.top_k,
+                   n_experts=cfg.n_experts, capacity=cap,
+                   activation=cfg.activation)
+    if cfg.n_shared_experts:
+        act = act_fn(cfg.activation)
+        hs = act(x2d @ p["shared_gate"]) * (x2d @ p["shared_up"])
+        y = y + hs @ p["shared_down"]
+    return y

@@ -11,10 +11,12 @@ checkout), a copy of ROOT's package whose static kernel records, for
 every task row (indexed by grid slot, 8 words a slot), with thread 0's
 ``%globaltimer``: 0 the wait's start, 1 its end, 2 the primary tile in
 place (the task's start after its barrier; a matmul's or expert GEMM's x
-rows in shared memory), 3 its first weight bytes returned (thread 0 loads
-the first weight float4 and stores it into word 6, so that the next stamp
-issues after the load has returned), 4 the end of thread 0's share of the
-weight stream, 5 the task's stores landed (the barrier before the
+rows in shared memory where the kernel stages them), 3 its first weight
+bytes returned (thread 0 loads the first weight float4 and stores it
+into word 6, so that the next stamp issues after the load has returned;
+with the weight ring: the first stage full), 4 the end of thread 0's
+share of the weight stream (the ring: the end of the first row pass's
+last column pass), 5 the task's stores landed (the barrier before the
 signal).  The copy's library exports ``mk_set_stamp(pointer)`` (null:
 off), which ``tools/ab_megakernel.py`` uses.  Each edit asserts that the
 text it replaces appears exactly once.  Imports nothing of JAX or of the
@@ -105,6 +107,30 @@ STAMP_EDITS = [
      'extern "C" const char* mk_error_string(int err) {'),
 ]
 
+#: the weight ring's kernel (ring_pass: thread 0 computes, warp 15 issues)
+#: in place of the register pass's two edits
+RING_EDITS = [
+    ("    mb_wait(rh->full + s, (seq / NS) & 1u, heap, S, seq);\n",
+     "    mb_wait(rh->full + s, (seq / NS) & 1u, heap, S, seq);\n"
+     "    if (threadIdx.x == 0 && r0 == 0 && g0 == 0 && k0 == 0 && !ep.mul)\n"
+     "      stamp_raw(3);\n"),
+    ("  if (nks > 1) {                        // then CPT == 1: reduce K "
+     "slices\n",
+     "  if (threadIdx.x == 0 && r0 == 0 && !ep.mul) stamp_raw(4);\n"
+     "  if (nks > 1) {                        // then CPT == 1: reduce K "
+     "slices\n"),
+]
+
+RING_FNS = '''// The stamp of a function that has no Smem: the slot at its fixed place.
+__device__ __forceinline__ void stamp_raw(int k) {
+  const long long slot = *reinterpret_cast<const long long*>(
+      reinterpret_cast<const float*>(smem_raw + (RING + 1) * ROW_BYTES) + 20);
+  if (g_stamp != nullptr && slot >= 0) g_stamp[slot * 8 + k] = stamp_ns();
+}
+
+'''
+
+
 def _edit(text, old, new):
     if text.count(old) != 1:
         raise SystemExit(f"prefetch_variants: {text.count(old)} matches "
@@ -114,7 +140,11 @@ def _edit(text, old, new):
 
 def stamped(text: str) -> str:
     """``text`` (a megakernel.cu) with the per-task stamps."""
-    for old, new in STAMP_EDITS:
+    edits = STAMP_EDITS
+    if "ring_pass" in text:              # the weight ring's kernel
+        edits = ([(edits[0][0], STAMP_FNS + RING_FNS + edits[0][0])]
+                 + RING_EDITS + edits[3:])
+    for old, new in edits:
         text = _edit(text, old, new)
     return text
 
